@@ -1,5 +1,5 @@
 """Minimal solve: the reference's `LBFGS(f, grad, x0, "backtracking", ...)`
-call (sequential-implementation/lbfgs.cpp:17-25) in its TPU-native form.
+call (sequential-implementation/lbfgs.cpp:17-25) in its on-device form.
 
 Run:  python examples/01_basic_solve.py
 """

@@ -1,13 +1,10 @@
-"""The fastest measured single-chip stack (see PERFORMANCE.md):
+"""The fastest measured single-device stack (see PERF.md):
 
-  compact_incremental direction + polynomial line search + Pallas fused
-  kernels + f32 lane-tiled history + fused iteration tail.
+  compact_incremental direction + polynomial line search + the fused
+  value-and-gradient + the fused iteration tail (a Triton kernel on the
+  GPU) + f32 history.
 
-~7,900 L-BFGS iterations/s on Rosenbrock d = 2^20 on one TPU v5e chip —
-about 800x the reference's GPU-vs-CPU headline (BASELINE.md).
-
-Run:  python examples/03_fast_stack.py          (sized for TPU; on CPU
-pass a smaller d / fewer iters)
+Run:  python examples/03_fast_stack.py   (d = 2^20 on a GPU, 2^14 elsewhere)
 """
 import time
 
@@ -19,8 +16,8 @@ import tpu_lbfgs as tl
 problem = "rosenbrock"
 p = tl.get_problem(problem)
 
-on_tpu = jax.default_backend() == "tpu"
-d, iters = ((1 << 20), 1000) if on_tpu else ((1 << 14), 100)
+on_gpu = jax.default_backend() == "gpu"
+d, iters = ((1 << 20), 1000) if on_gpu else ((1 << 14), 100)
 
 cfg = tl.LBFGSConfig(
     line_search="backtracking",
@@ -33,18 +30,18 @@ cfg = tl.LBFGSConfig(
 
 # Problem-aware fast-path capabilities (all optional; plain minimize(f, x0)
 # works for any objective):
-vg = tl.fused_value_and_grad(problem, use_pallas=True)     # f+grad, one pass
+vg = tl.fused_value_and_grad(problem)                      # f+grad, one pass
 tail = tl.fused_tail_for(problem, with_matvec=False)       # fused iteration tail
 
 x0 = jnp.full((d,), -1.2, jnp.float32)
-res = tl.minimize(p.f, x0, cfg, value_and_grad=vg,
-                  dir_poly=p.dir_poly, fused_tail=tail)
-float(res.f)  # compile warmup fence
+res = jax.block_until_ready(tl.minimize(p.f, x0, cfg, value_and_grad=vg,
+                                        dir_poly=p.dir_poly,
+                                        fused_tail=tail))   # compile warmup
 
 t0 = time.perf_counter()
-res = tl.minimize(p.f, x0, cfg, value_and_grad=vg,
-                  dir_poly=p.dir_poly, fused_tail=tail)
-float(res.f)
+res = jax.block_until_ready(tl.minimize(p.f, x0, cfg, value_and_grad=vg,
+                                        dir_poly=p.dir_poly,
+                                        fused_tail=tail))
 dt = time.perf_counter() - t0
 print(f"{int(res.iterations)} iterations in {dt:.3f}s = "
       f"{int(res.iterations) / dt:.0f} it/s")

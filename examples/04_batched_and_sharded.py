@@ -1,11 +1,11 @@
 """Scaling out: vmapped instance batches and mesh-sharded giant instances.
 
 The reference is single-process single-GPU (SURVEY.md §2 parallelism
-inventory); these are the two TPU-native scaling axes:
+inventory); these are the two scaling axes here:
 
-  - batch axis:  thousands of independent problem instances per chip (vmap)
+  - batch axis:  thousands of independent problem instances per device (vmap)
   - vector axis: one giant instance sharded over a device mesh, every
-    reduction compiled to local partials + psum over ICI
+    reduction compiled to local partials + psum
 
 Run:  python examples/04_batched_and_sharded.py
 (on CPU it uses the virtual-device mesh; set
@@ -50,9 +50,10 @@ print(f"sharded over {len(mesh.devices.ravel())} device(s): "
       f"{tl.Status.NAMES[int(res.status)]} in {int(res.iterations)} iters, "
       f"||g|| = {float(res.g_norm):.2e}")
 
-# --- 3. both axes at once: a 2-D (batch, d) mesh, fast Pallas stack ----------
-# Passing problem= selects the shard-composable fused kernels: per-shard
-# Pallas programs inside shard_map, batched over the mesh's b axis.
+# --- 3. both axes at once: a 2-D (batch, d) mesh, fused-tail stack ----------
+# Passing problem= selects the shard-composable fused tail: the per-shard
+# tail inside shard_map (the Triton kernel on GPUs), batched over the mesh's
+# b axis.
 n = len(jax.devices())
 if n % 2 == 0 and n > 1:
     mesh2 = make_mesh_2d(batch_size=2)

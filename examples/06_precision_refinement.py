@@ -1,4 +1,4 @@
-"""Two-stage precision refinement: f32 on the TPU, f64 polish on the host.
+"""Two-stage precision refinement: f32 on the GPU, f64 polish on the host.
 
 The BASELINE.json north-star asks for time-to-||g|| <= 1e-5 at d ~ 1e6.
 That tolerance is below the float32 gradient-ENTRY noise floor at this d
@@ -6,22 +6,20 @@ That tolerance is below the float32 gradient-ENTRY noise floor at this d
 entries put the achievable norm around 1e-3 no matter how accurately the
 reduction is summed), so no single-precision run can get there.
 
-The production split: let the TPU do ~100k fast f32 iterations down to
+The split: let the GPU do ~100k fast f32 iterations down to
 ||g|| <= 1e-3, then hand the iterate to the C++ f64 oracle on the host —
 L-BFGS's superlinear local convergence needs only ~10 double-precision
 iterations from there (~1 s at d = 2^20).
 
-Run:  python examples/06_precision_refinement.py [d]   (defaults to 2^20 on
-TPU, 2^14 elsewhere — the coarse stage needs ~100k iterations at 2^20)
+Run:  python examples/06_precision_refinement.py [d]   (default 2^20; the
+coarse stage needs ~100k iterations there.  Needs a GPU: the timing
+harness refuses to measure anything else.)
 """
 import sys
 
-import jax
-
 from tpu_lbfgs.bench.harness import time_to_tolerance_refined
 
-default_d = 1 << 20 if jax.default_backend() == "tpu" else 1 << 14
-d = int(sys.argv[1]) if len(sys.argv) > 1 else default_d
+d = int(sys.argv[1]) if len(sys.argv) > 1 else 1 << 20
 
 r = time_to_tolerance_refined(problem="rosenbrock", d=d, coarse_tol=1e-3,
                               tol=1e-5, refine_backend="native")

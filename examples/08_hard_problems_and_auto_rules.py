@@ -1,17 +1,15 @@
-"""Hard-problem tooling and the measured auto rules (round 5).
+"""Hard-problem tooling and the auto rules.
 
 Three features the reference has no analogue for:
   1. Powell damping (cfg.damping): BLEND low-curvature pairs instead of
      rejecting them (the reference can only skip, lbfgs.cpp:192-195) —
-     composes with every stack including the fused Pallas tail and the
-     sharded solver.
-  2. history_dtype="auto": the measured residency + tiling rule picks the
-     ring dtype (f32 while VMEM-resident or when bf16 would pad its
-     (16, 128) tiles; bf16 when the TOTAL footprint streams cleanly) —
-     batch-aware, so a 4096-instance vmap resolves differently than one
-     instance of the same d.
+     composes with every stack including the fused tail and the sharded
+     solver.
+  2. history_dtype="auto": resolved per solve from the ring's size and the
+     batch (core.solver.resolve_history_dtype; the input dtype until a
+     size rule is measured on the GPU, ROADMAP S5).
   3. resolve_speculative_auto: a short sequential probe decides whether the
-     speculative (fused K-trial) Wolfe twin will pay off, from the observed
+     speculative (batched K-trial) Wolfe twin will pay off, from the observed
      line-search trials/iteration (CLI: --auto-speculative).
 
 Run:  python examples/08_hard_problems_and_auto_rules.py

@@ -7,7 +7,7 @@
 //      rules, fp64, host control flow).
 //   2. CPU performance baseline for bench.py — the stand-in for the
 //      reference's sequential implementation on this machine, against which
-//      the TPU speedup is measured (BASELINE.md: reference GPU ~ 1.2x its CPU).
+//      the device speedup is measured (BASELINE.md: reference GPU ~ 1.2x its CPU).
 //
 // Exposed via a C ABI for ctypes (no pybind11 in this environment).
 //

@@ -10,17 +10,16 @@ device-side traces (cfg.record_trace — no per-iteration host sync, unlike
 the reference's cout logging) and evaluates both claims against the data.
 
 Config: the protocol's recommended f32 stack (parallel-reference tolerances,
-rescue disabled — reference_protocol.run_tpu_cell no_rescue), d=10,000,
+rescue disabled — reference_protocol.run_device_cell no_rescue), d=10,000,
 reference seed 42 (+ iteration counts over 3 seeds), direct evaluation.
-The speculative Wolfe twin (fused K-trial (phi, phi') kernel) is the
+The speculative Wolfe twin (K trial (phi, phi') pairs per round) is the
 "parallelized line search" of claim (b).
 
 Start box: x0 ~ U(-10, 10), NOT the published U(-1000, 1000) — from the
 far box the interpolating searches' first trial sends f through values
 beyond f32's exponent range and they fail honestly at iteration 1 (the
-same documented behavior as the committed protocol grid's f32 cells and
-the emulated-f64 grid); profiles from the far box would compare two
-1-iteration flatlines.  Within the scaled box every strategy iterates and
+same documented behavior as the protocol grid's f32 cells); profiles from
+the far box would compare two 1-iteration flatlines.  Within the scaled box every strategy iterates and
 the figure's qualitative comparison is meaningful.
 
 Writes convergence_profiles.json at the repo root.
@@ -76,12 +75,11 @@ def run_one(strategy: str, seed: int, traced: bool):
         ls_eval="direct", use_pallas=True, alpha_rescue_floor=None,
         max_iters=WINDOW, record_trace=traced)
     p = get_problem("rosenbrock")
-    vg = fused_value_and_grad("rosenbrock", use_pallas=True)
-    fused_tail = fused_tail_for("rosenbrock", with_matvec=False,
-                                use_pallas=True)
+    vg = fused_value_and_grad("rosenbrock")
+    fused_tail = fused_tail_for("rosenbrock", with_matvec=False)
     phi_dphi_batch = None
     if strategy.endswith("_speculative"):
-        phi_dphi_batch = multi_phi_dphi_for("rosenbrock", use_pallas=True)
+        phi_dphi_batch = multi_phi_dphi_for("rosenbrock")
 
     @jax.jit
     def run(x0):
@@ -96,12 +94,10 @@ def run_one(strategy: str, seed: int, traced: bool):
 
     x0 = jnp.asarray(_x0_np(D, seed, -10.0, 10.0), jnp.float32)
     t0 = time.perf_counter()
-    out = run(x0)
-    float(out.f)
+    out = jax.block_until_ready(run(x0))
     compile_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out = run(x0)
-    float(out.f)
+    out = jax.block_until_ready(run(x0))
     wall = time.perf_counter() - t0
     return out, wall, compile_s
 

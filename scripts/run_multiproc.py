@@ -6,8 +6,8 @@ This is the executable proof of the multi-host communication layer
 (dist/multihost.py): two OS processes, a localhost coordinator, gloo CPU
 collectives, one global 8-device mesh (4 virtual devices per process), a
 psum crossing the process boundary, and ``sharded_minimize`` returning the
-same answer as a single-process solve.  The same program shape runs on a
-TPU pod with ICI collectives instead of gloo.
+same answer as a single-process solve.  The same program shape runs across
+GPU hosts with NCCL collectives instead of gloo.
 
 Usage:
     python scripts/run_multiproc.py [--num-processes 2] [--out MULTIPROC.json]

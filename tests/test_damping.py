@@ -107,9 +107,9 @@ def test_damping_composes_with_fused_tail():
     """cfg.damping now runs on the fused-tail path (the blend is applied to
     the kernel's raw outputs post-hoc): trajectory must match the plain jnp
     tail.  Exercised through the fused-tail code route (t1/t2 matvecs +
-    hdtype rows) via its jnp composition — semantics identical to the Pallas
+    hdtype rows) via its jnp composition — semantics identical to the Triton
     kernel, which tests/test_tail_fused.py pins against it."""
-    from tpu_lbfgs.kernels.pallas_ops import fused_tail_jnp
+    from tpu_lbfgs.kernels.tail import fused_tail_jnp
 
     def vg(x):
         return _dw(x), _dw_grad(x)
@@ -133,9 +133,9 @@ def test_damping_composes_with_fused_tail():
 
 
 def test_damping_composes_with_pallas_f32():
-    """damping + use_pallas + fused Pallas tail (interpret mode on CPU) on a
-    suite problem: runs without raising and matches the jnp path to f32
-    tolerance."""
+    """damping + use_pallas + the Triton fused tail (interpret mode on CPU)
+    on a suite problem: runs without raising and matches the jnp path to
+    f32 tolerance."""
     from tpu_lbfgs.problems.suite import fused_tail_for, fused_value_and_grad
 
     p = get_problem("rosenbrock")
@@ -148,7 +148,8 @@ def test_damping_composes_with_pallas_f32():
     r_pal = minimize(p.f, x0, cfg.replace(use_pallas=True), grad=p.grad,
                      value_and_grad=fused_value_and_grad("rosenbrock"),
                      fused_tail=fused_tail_for("rosenbrock",
-                                               with_matvec=True))
+                                               with_matvec=True,
+                                               interpret=True))
     # f32 kernels accumulate in a different order than the jnp reduction;
     # trajectories agree to f32 tolerance over 25 iterations.
     np.testing.assert_allclose(np.asarray(r_pal.x), np.asarray(r_jnp.x),

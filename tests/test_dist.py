@@ -17,6 +17,16 @@ from tpu_lbfgs.dist import (
 )
 
 
+@pytest.fixture
+def cpu_measure(monkeypatch):
+    """Let the scaling harness run on the CPU mesh: its device check
+    (harness.require_gpu) would refuse; these tests check the program and
+    the bookkeeping, not a device number."""
+    from tpu_lbfgs.bench import harness, scaling
+
+    monkeypatch.setattr(scaling, "require_gpu", harness.device_record)
+
+
 @pytest.fixture(scope="module")
 def mesh():
     assert len(jax.devices()) == 8, "conftest should provide 8 CPU devices"
@@ -176,7 +186,7 @@ def test_batched_problem_params():
                                atol=1e-8)
 
 
-def test_scaling_sweep_on_virtual_mesh():
+def test_scaling_sweep_on_virtual_mesh(cpu_measure):
     """Strong-scaling harness runs on the 8-virtual-CPU mesh and produces
     consistent results (no real speedup expected — the 'devices' share one
     physical CPU; this validates program + bookkeeping, not performance)."""
@@ -192,39 +202,40 @@ def test_scaling_sweep_on_virtual_mesh():
     assert rows[0]["efficiency"] == 1.0
 
 
-def test_bench_sharded_explicit_pallas_unsupported_problem_falls_back():
-    """use_pallas=True for a problem without shard-composable kernels (or a
-    non-f32 dtype) must warn and bench the jnp-shard path, not KeyError
-    inside shardmap_fused_vg."""
+def test_bench_sharded_explicit_pallas_unsupported_problem_falls_back(
+        cpu_measure):
+    """use_pallas=True for a problem without a shard-composable fused tail
+    (or a non-f32 dtype) must warn and bench the jnp-shard path, not
+    KeyError inside shardmap_fused_vg."""
     import jax.numpy as jnp
 
     from tpu_lbfgs.bench.scaling import bench_sharded
     cfg = LBFGSConfig(line_search="backtracking", direction="compact")
-    with pytest.warns(RuntimeWarning, match="no sharded Pallas kernels"):
+    with pytest.warns(RuntimeWarning, match="no sharded fused tail"):
         row = bench_sharded("sphere", d=1024, iters=3, cfg=cfg, n_devices=2,
                             dtype=jnp.float32, repeats=1, use_pallas=True)
     assert row["stack"] == "jnp-shard"
     assert np.isfinite(row["final_f"])
 
 
-def test_bench_sharded_single_device_pallas_unsupported_warns():
+def test_bench_sharded_single_device_pallas_unsupported_warns(cpu_measure):
     """n_devices == 1 with use_pallas=True for a non-FUSED_VG problem: the
-    fused helpers silently fall back to jnp, so the row must warn and be
-    labeled jnp — not report the fallback as 'pallas-unsharded' (ADVICE r3)."""
+    fused helpers fall back to jnp, so the row must warn and be labeled
+    jnp — not report the fallback as 'fused-unsharded'."""
     import jax.numpy as jnp
 
     from tpu_lbfgs.bench.scaling import bench_sharded
     cfg = LBFGSConfig(line_search="backtracking", direction="compact")
-    with pytest.warns(RuntimeWarning, match="no Pallas kernels"):
+    with pytest.warns(RuntimeWarning, match="no fused tail"):
         row = bench_sharded("sphere", d=1024, iters=3, cfg=cfg, n_devices=1,
                             dtype=jnp.float32, repeats=1, use_pallas=True)
     assert row["stack"] == "jnp-shard"
     assert np.isfinite(row["final_f"])
 
 
-def test_bench_sharded_with_matvec_stack_label():
-    """The matvec winner config is reachable and labeled from bench_sharded
-    on both the sharded and single-device stacks."""
+def test_bench_sharded_with_matvec_stack_label(cpu_measure):
+    """The tail-matvec configuration is reachable and labeled from
+    bench_sharded."""
     import jax.numpy as jnp
 
     from tpu_lbfgs.bench.scaling import bench_sharded
@@ -233,7 +244,7 @@ def test_bench_sharded_with_matvec_stack_label():
     row = bench_sharded("coupled_quadratic", d=128 * 8 * 8 * 2, iters=4,
                         cfg=cfg, n_devices=8, dtype=jnp.float32, repeats=1,
                         use_pallas=True, with_matvec=True)
-    assert row["stack"] == "pallas-shard+matvec"
+    assert row["stack"] == "fused-shard+matvec"
     assert np.isfinite(row["final_f"])
 
 

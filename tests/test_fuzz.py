@@ -108,7 +108,7 @@ def test_fuzz_fused_tail_parity():
     """Randomized (x, d, alpha, g, history): the fused tail's jnp fallback
     and the solver-visible quantities agree with direct computation."""
     from tpu_lbfgs.core.solver import make_value_and_grad
-    from tpu_lbfgs.kernels.pallas_ops import fused_tail_jnp
+    from tpu_lbfgs.kernels.tail import fused_tail_jnp
     from tpu_lbfgs.problems import get_problem
     from tpu_lbfgs.types import hist_block
 

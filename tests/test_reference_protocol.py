@@ -1,10 +1,10 @@
 """Machinery tests for the reference-protocol runner (bench/reference_protocol.py).
 
 The real experiment (5 seeds x 4 strategies x d up to 2^20, far starts, to
-convergence) runs on hardware via `python -m tpu_lbfgs.bench
+convergence) runs on the GPU via `python -m tpu_lbfgs.bench
 --reference-protocol`; these tests exercise the same code paths at small d
 on the CPU backend: cell execution, budget limiting, summary statistics,
-and the markdown rendering the PERFORMANCE.md table is produced from.
+and the markdown rendering of the report table.
 """
 import numpy as np
 import pytest
@@ -13,9 +13,19 @@ from tpu_lbfgs.bench.reference_protocol import (
     TABLE_I_STRATEGIES,
     markdown_table,
     run_cpu_cell,
+    run_device_cell,
     run_protocol,
-    run_tpu_cell,
 )
+
+
+@pytest.fixture(autouse=True)
+def cpu_measure(monkeypatch):
+    """Device cells refuse anything but a GPU (harness.require_gpu); these
+    tests check the protocol machinery on the CPU, not device numbers."""
+    from tpu_lbfgs.bench import harness, reference_protocol
+
+    monkeypatch.setattr(reference_protocol, "require_gpu",
+                        harness.device_record)
 
 
 def test_table_i_strategy_names_are_valid():
@@ -43,12 +53,12 @@ def test_cpu_cell_budget_limits_seeds():
     assert cell["seeds_total"] == 3
 
 
-def test_tpu_cell_far_start_quadratic_converges_f32():
+def test_device_cell_far_start_quadratic_converges_f32():
     # The quadratic stays in f32 range from U(-1000,1000) starts; the cell
     # must converge to the GPU-config tolerance (1e-1) in a handful of
     # iterations and report per-seed data.
-    cell = run_tpu_cell("quadratic", 256, "backtracking", seeds=(42,),
-                        use_pallas=False)
+    cell = run_device_cell("quadratic", 256, "backtracking", seeds=(42,),
+                           use_pallas=False)
     assert cell["seeds_run"] == 1
     assert cell["statuses"] == ["converged"]
     assert cell["max_final_g_norm"] <= 1e-1
@@ -56,33 +66,32 @@ def test_tpu_cell_far_start_quadratic_converges_f32():
     assert "compile_s" in cell
 
 
-def test_tpu_cell_far_start_rosenbrock_wolfe_matches_oracle_iters():
+def test_device_cell_far_start_rosenbrock_wolfe_matches_oracle_iters():
     # Wolfe backtracking survives far starts in f32 (growth phase escapes the
     # floor); its iteration count should be the same order as the f64 oracle
     # run of the same protocol (a coarse parity check: both ~8k at d=512).
-    tpu = run_tpu_cell("rosenbrock", 512, "backtracking_wolfe", seeds=(42,),
-                       use_pallas=False)
-    assert tpu["statuses"] == ["converged"]
+    dev = run_device_cell("rosenbrock", 512, "backtracking_wolfe",
+                          seeds=(42,), use_pallas=False)
+    assert dev["statuses"] == ["converged"]
     cpu = run_cpu_cell("rosenbrock", 512, "backtracking_wolfe", seeds=(42,))
     assert cpu["statuses"] == ["converged"]
-    ratio = tpu["mean_iterations"] / cpu["mean_iterations"]
-    assert 0.5 <= ratio <= 2.0, (tpu["mean_iterations"], cpu["mean_iterations"])
+    ratio = dev["mean_iterations"] / cpu["mean_iterations"]
+    assert 0.5 <= ratio <= 2.0, (dev["mean_iterations"], cpu["mean_iterations"])
 
 
 def test_run_protocol_quick_grid_and_report(tmp_path):
     out = tmp_path / "ref.json"
-    # isolate=False: in-process cells (subprocess isolation would spawn
-    # real-TPU interpreters from inside the CPU-pinned test env).
+    # isolate=False: in-process CPU-oracle cells (no child processes).
     report = run_protocol(problem="quadratic", dims=(256, 512),
-                          seeds=(42, 365), cpu=True, tpu=True,
+                          seeds=(42, 365), cpu=True, device=True,
                           cpu_budget_s=60.0, out=str(out), quick=True,
                           isolate=False)
     # quick: first dim only, first 2 seeds, 4 strategies x 3 backends
-    # (tpu-f32 verbatim parallel cfg, tpu-f32 no-rescue, cpu oracle).
+    # (device-f32 verbatim parallel cfg, device-f32 no-rescue, cpu oracle).
     assert len(report["cells"]) == 12
     assert {c["d"] for c in report["cells"]} == {256}
     backends = {c["backend"] for c in report["cells"] if "backend" in c}
-    assert {"tpu-f32-parcfg", "tpu-f32-norescue",
+    assert {"device-f32-parcfg", "device-f32-norescue",
             "cpu-native-f64"} <= backends
     assert out.exists()
     md = markdown_table(report)
@@ -92,7 +101,7 @@ def test_run_protocol_quick_grid_and_report(tmp_path):
 
 def test_markdown_table_renders_error_and_skip_rows():
     report = {"cells": [
-        {"d": 10, "strategy": "S", "backend": "tpu", "error": "boom"},
+        {"d": 10, "strategy": "S", "backend": "device", "error": "boom"},
         {"d": 10, "strategy": "S", "backend": "cpu", "skipped": "budget"},
     ]}
     md = markdown_table(report)
@@ -105,31 +114,30 @@ def test_norescue_recovers_where_parallel_quirk_overflows():
     parallel line_search.cpp:38-41) overflows and kills plain-Armijo cells,
     while disabling it (sequential underflow semantics) follows the f64
     oracle's recovery path and converges to the GPU tolerance."""
-    quirky = run_tpu_cell("rosenbrock", 512, "backtracking", seeds=(42,),
-                          use_pallas=False)
+    quirky = run_device_cell("rosenbrock", 512, "backtracking", seeds=(42,),
+                             use_pallas=False)
     assert quirky["statuses"] == ["line_search_failed"]
-    clean = run_tpu_cell("rosenbrock", 512, "backtracking", seeds=(42,),
-                         use_pallas=False, no_rescue=True)
+    clean = run_device_cell("rosenbrock", 512, "backtracking", seeds=(42,),
+                            use_pallas=False, no_rescue=True)
     assert clean["statuses"] == ["converged"]
     assert clean["max_final_g_norm"] <= 1e-1
 
 
 def test_quick_grid_has_no_f64_probe_and_speedups_skip_failed_cells(tmp_path):
-    """(a) The Fig.-1 f64 probe is subprocess-only (isolate=False runs, i.e.
-    tests, must not spawn real-TPU interpreters); (b) the per-iteration
-    speedup summary keys on STATUS: line_search_failed-at-iteration-1 cells
-    (truthy iters_per_s that round-2 turned into bogus 0.0x rows) are
-    excluded, but a quadratic legitimately converging at 1 iteration IS a
-    real rate and must be summarized."""
+    """(a) f64 device cells run only when asked for (device_f64); (b) the
+    per-iteration speedup summary keys on STATUS: line_search_failed-at-
+    iteration-1 cells are excluded, but a quadratic legitimately converging
+    at 1 iteration IS a real rate and must be summarized."""
     report = run_protocol(problem="quadratic", dims=(256,), seeds=(42,),
-                          cpu=True, tpu=True, cpu_budget_s=60.0,
+                          cpu=True, device=True, cpu_budget_s=60.0,
                           out=str(tmp_path / "r.json"), quick=True,
                           isolate=False)
-    assert report["f64_probe"] is None
+    assert not any(c["backend"].startswith("device-f64")
+                   for c in report["cells"])
     for s in report["per_iteration_speedups"]:
         # every summarized pair comes from cells that converged or hit
         # max_iters — never from failed-at-iteration-1 cells
-        for backend in ("tpu-f32-norescue", "cpu-native-f64"):
+        for backend in ("device-f32-norescue", "cpu-native-f64"):
             c = next(c for c in report["cells"]
                      if c["d"] == s["d"] and c["strategy"] == s["strategy"]
                      and c["backend"] == backend)
@@ -151,7 +159,7 @@ def test_cell_ran_requires_every_seed_to_iterate():
     mixed = {"iters_per_s": 100.0,
              "statuses": ["line_search_failed"] * 7 + ["max_iters"]}
     empty = {"iters_per_s": 100.0, "statuses": []}
-    skipped = {"skipped": "tunnel circuit breaker"}
+    skipped = {"skipped": "budget"}
     assert _cell_ran(good)
     assert not _cell_ran(mixed)
     assert not _cell_ran(empty)
@@ -173,7 +181,7 @@ def test_cell_rate_keeps_mixed_cells_partial_data():
             "statuses": ["line_search_failed", "line_search_failed"],
             "per_seed_wall_s": [0.004, 0.004],
             "per_seed_iterations": [1, 1]}
-    skipped = {"skipped": "tunnel circuit breaker"}
+    skipped = {"skipped": "budget"}
     assert _cell_rate(clean) == (100.0, 2)
     rate, used = _cell_rate(mixed)
     assert used == 1 and abs(rate - 100.0) < 1e-9   # only the iterated seed
@@ -181,25 +189,18 @@ def test_cell_rate_keeps_mixed_cells_partial_data():
     assert _cell_rate(skipped) == (None, 0)
 
 
-def test_f64_cell_segmented_path(monkeypatch):
-    """Large-d emulated-f64 cells run via bounded segments (the worker-crash
-    workaround; scripts/f64_crash_repro.py): same results as the monolithic
-    path, exercised here on CPU with the threshold lowered."""
-    import tpu_lbfgs.bench.reference_protocol as rp
+def test_f64_device_cell_runs_in_process():
+    """The f64 sequential-config device cell (native f64 on the GPU) runs
+    the whole solve as one jitted program in this process and converges to
+    the sequential reference's tolerance; the x64 flag is restored after."""
+    import jax
 
-    cell_mono = rp.run_tpu_cell("rosenbrock", 2048, "backtracking",
-                                seeds=(42,), dtype="float64",
-                                budget_s=120.0, use_pallas=False)
-    monkeypatch.setattr(rp, "F64_SEGMENT_THRESHOLD", 1024)
-    cell_seg = rp.run_tpu_cell("rosenbrock", 2048, "backtracking",
-                               seeds=(42,), dtype="float64",
-                               budget_s=120.0, use_pallas=False)
-    assert cell_seg["backend"] == "tpu-f64-seqcfg"
-    assert cell_seg["statuses"] == cell_mono["statuses"]
-    # The segmented body is a separately-compiled program: different fusion,
-    # different fp rounding, so a 10k-iteration trajectory may differ by a
-    # handful of iterations (observed ~0.1%) — same algorithm, same quality.
-    assert abs(cell_seg["mean_iterations"] - cell_mono["mean_iterations"]) \
-        <= 0.01 * cell_mono["mean_iterations"]
-    assert cell_seg["max_final_g_norm"] <= 10 * cell_mono["max_final_g_norm"] \
-        or cell_seg["max_final_g_norm"] < 1e-6
+    before = jax.config.jax_enable_x64
+    cell = run_device_cell("rosenbrock", 2048, "backtracking", seeds=(42,),
+                           dtype="float64", budget_s=120.0,
+                           use_pallas=False, x0_range=(-2.0, 2.0))
+    assert jax.config.jax_enable_x64 == before
+    assert cell["backend"] == "device-f64-seqcfg-scaled"
+    assert cell["statuses"] == ["converged"]
+    assert cell["max_final_g_norm"] <= 1e-8
+    assert cell["compile_s"] > 0 and cell["seeds_run"] == 1

@@ -178,26 +178,25 @@ def test_refresh_interval_zero_rejected():
 def test_accurate_dots_fused_tail_pairing():
     """accurate_dots silently replaced by per-block accumulation was exactly
     the giant-d corruption it exists to prevent: a PLAIN fused tail under
-    cfg.accurate_dots is still a trace-time error.  The compensated kernels
-    now exist (r5), so accurate_dots=True tails and the bare use_pallas path
-    (compensated iteration_tail) run instead of raising."""
+    cfg.accurate_dots is still a trace-time error; accurate_dots=True tails
+    and the bare use_pallas path (compensated iteration_tail) run."""
     from tpu_lbfgs import Status, minimize
     from tpu_lbfgs.problems.suite import fused_tail_for
     p = get_problem("rosenbrock")
     x0 = jnp.full((256,), 1.5, jnp.float32)
-    tail = fused_tail_for("rosenbrock", with_matvec=False, use_pallas=False)
+    tail = fused_tail_for("rosenbrock", with_matvec=False)
     with pytest.raises(ValueError, match="accurate_dots"):
         minimize(p.f, x0, LBFGSConfig(accurate_dots=True, max_iters=5),
                  grad=p.grad, fused_tail=tail)
     # Compensated pairings run end-to-end (semantics pinned in
-    # tests/test_kernels.py::test_accurate_dots_composes_with_pallas_solver).
+    # tests/test_kernels.py::test_accurate_dots_composes_with_fused_tail_solver).
     r = minimize(p.f, x0,
                  LBFGSConfig(accurate_dots=True, use_pallas=True, max_iters=5,
                              tol=0.0),
                  grad=p.grad)
     assert int(r.iterations) == 5 and int(r.status) == Status.MAX_ITERS
     tail_c = fused_tail_for("rosenbrock", with_matvec=False,
-                            use_pallas=False, accurate_dots=True)
+                            accurate_dots=True)
     r2 = minimize(p.f, x0, LBFGSConfig(accurate_dots=True, max_iters=5,
                                        tol=0.0),
                   grad=p.grad, fused_tail=tail_c)

@@ -1,5 +1,5 @@
 """Speculative (batched-candidate) backtracking: alpha parity with the
-sequential strategy, and the fused multi-trial kernel.
+sequential strategy, and the batched trial evaluator.
 
 The speculative search evaluates the whole ladder alpha0 * shrink^[0..K) per
 round in one vector phi call; the accepted alpha must be IDENTICAL to
@@ -13,7 +13,6 @@ import pytest
 
 from tpu_lbfgs.config import LBFGSConfig
 from tpu_lbfgs.core.solver import make_phi, make_value_and_grad, minimize
-from tpu_lbfgs.kernels.pallas_ops import _multi_phi_pallas
 from tpu_lbfgs.linesearch.strategies import (
     backtracking,
     backtracking_speculative,
@@ -73,17 +72,21 @@ def test_alpha_parity_with_rescue_floor():
 
 @pytest.mark.parametrize("problem", ["quadratic", "rosenbrock",
                                      "coupled_quadratic"])
-def test_multi_phi_kernel_matches_vmap(problem):
-    d = 1152
+def test_multi_phi_matches_numpy(problem):
+    """multi_phi_for (the vmapped objective, XLA) vs the NumPy twin at K
+    trial points, at an unaligned d."""
+    import np_problems
+
+    d = 1152 + 77
     rng = np.random.default_rng(3)
     x = jnp.asarray(rng.uniform(-2, 2, d), jnp.float32)
     dv = jnp.asarray(rng.uniform(-1, 1, d), jnp.float32)
     alphas = jnp.asarray([1.0, 0.5, 0.25, 0.125, 0.0625], jnp.float32)
-    p = get_problem(problem)
-    ref = jax.vmap(lambda a: p.f(x + a * dv))(alphas)
-    out = _multi_phi_pallas(problem, x, dv, alphas)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=2e-5, atol=1e-3)
+    out = jax.jit(multi_phi_for(problem))(x, dv, alphas)
+    f_np = np_problems.PROBLEMS[problem][0]
+    x64, d64 = np.asarray(x, np.float64), np.asarray(dv, np.float64)
+    ref = [f_np(x64 + float(a) * d64) for a in alphas]
+    np.testing.assert_allclose(np.asarray(out), ref, rtol=2e-5, atol=1e-3)
 
 
 def test_make_phi_vector_capable_direct():

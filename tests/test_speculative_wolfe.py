@@ -3,7 +3,7 @@
 alpha sequences EXACTLY — speculation changes how many evaluations run, not
 which step is accepted.
 
-Covers: the multi (phi, dphi) kernel vs vmap, strategy-level alpha parity on
+Covers: the batched (phi, dphi) evaluator vs NumPy, strategy-level alpha parity on
 crafted 1-D problems, and end-to-end trajectory parity of full solves.
 Completes the paper's "multiple step sizes in parallel" idea
 (cuda_lbfgs.pdf §II) for the Wolfe searches it motivated; the reference's
@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 
 from tpu_lbfgs import LBFGSConfig, get_problem, minimize
-from tpu_lbfgs.kernels import make_multi_phi_dphi
 from tpu_lbfgs.linesearch.strategies import (
     backtracking_wolfe,
     backtracking_wolfe_speculative,
@@ -27,19 +26,24 @@ from tpu_lbfgs.linesearch.strategies import (
 
 @pytest.mark.parametrize("problem", ["quadratic", "rosenbrock",
                                      "coupled_quadratic"])
-def test_multi_phi_dphi_kernel_matches_vmap(problem):
-    p = get_problem(problem)
+def test_multi_phi_dphi_matches_numpy(problem):
+    """multi_phi_dphi_for (vmapped fused value-and-gradient, XLA) vs the
+    NumPy twins at K trial points."""
+    import np_problems
+
+    from tpu_lbfgs.problems.suite import multi_phi_dphi_for
+
     rng = np.random.default_rng(3)
     x = jnp.asarray(rng.uniform(-2, 2, 2048), jnp.float32)
     d = jnp.asarray(rng.uniform(-1, 1, 2048), jnp.float32)
     alphas = jnp.asarray([1.0, 2.0, 4.0, 0.5, 0.25], jnp.float32)
-    pd = make_multi_phi_dphi(problem, p.value_and_grad, use_pallas=True)
-    phis, dphis = jax.jit(pd)(x, d, alphas)
-    want_f = jax.vmap(lambda a: p.f(x + a * d))(alphas)
-    want_d = jax.vmap(lambda a: jnp.vdot(p.grad(x + a * d), d))(alphas)
-    np.testing.assert_allclose(np.asarray(phis), np.asarray(want_f),
-                               rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(dphis), np.asarray(want_d),
+    phis, dphis = jax.jit(multi_phi_dphi_for(problem))(x, d, alphas)
+    f_np, g_np = np_problems.PROBLEMS[problem]
+    x64, d64 = np.asarray(x, np.float64), np.asarray(d, np.float64)
+    want_f = [f_np(x64 + float(a) * d64) for a in alphas]
+    want_d = [g_np(x64 + float(a) * d64) @ d64 for a in alphas]
+    np.testing.assert_allclose(np.asarray(phis), want_f, rtol=2e-5)
+    np.testing.assert_allclose(np.asarray(dphis), want_d,
                                rtol=2e-5, atol=1e-2)
 
 
@@ -126,9 +130,9 @@ def test_speculative_wolfe_full_solve_trajectory_parity(ls_pair, problem):
 
 
 def test_speculative_wolfe_with_pallas_phi_dphi_batch():
-    """f32 + the fused K-trial kernel as phi_dphi_batch: the speculative
-    solve matches the sequential Wolfe solve within f32 reduction
-    tolerance."""
+    """f32 + the batched K-trial evaluator as phi_dphi_batch: the
+    speculative solve matches the sequential Wolfe solve within f32
+    reduction tolerance."""
     from tpu_lbfgs.problems.suite import multi_phi_dphi_for
 
     p = get_problem("rosenbrock")
@@ -141,7 +145,7 @@ def test_speculative_wolfe_with_pallas_phi_dphi_batch():
         p.f, x0,
         base.replace(line_search="wolfe_interpolation_speculative"),
         grad=p.grad,
-        phi_dphi_batch=multi_phi_dphi_for("rosenbrock", use_pallas=True))
+        phi_dphi_batch=multi_phi_dphi_for("rosenbrock"))
     assert abs(int(r_spec.iterations) - int(r_seq.iterations)) <= 1
     np.testing.assert_allclose(float(r_spec.f), float(r_seq.f), rtol=5e-3)
 
@@ -165,9 +169,9 @@ def test_speculative_wolfe_polynomial_mode():
 
 
 def test_speculative_wolfe_sharded():
-    """The K-trial (phi, phi') kernel composed per-shard (one packed psum of
-    the (2, K) partials): sharded speculative-Wolfe solve matches the
-    sharded sequential-Wolfe solve."""
+    """Sharded speculative-Wolfe solve (the K trials as one vmapped
+    evaluation on the sharded vectors) matches the sharded sequential-Wolfe
+    solve."""
     import warnings
 
     from tpu_lbfgs.dist import make_mesh, sharded_minimize
@@ -179,7 +183,7 @@ def test_speculative_wolfe_sharded():
     base = LBFGSConfig(max_iters=20, tol=0.0, c2=0.9, ls_eval="direct",
                        use_pallas=True)
     with warnings.catch_warnings():
-        warnings.simplefilter("error")      # the Pallas path must NOT warn
+        warnings.simplefilter("error")      # the fused path must NOT warn
         r_spec = sharded_minimize(
             p.f, x0,
             base.replace(line_search="wolfe_interpolation_speculative"),

@@ -1,10 +1,11 @@
 """Fused post-line-search tail kernel: parity with the plain-ops composition.
 
-The fused tail (kernels/pallas_ops.py::make_fused_tail) must return exactly
-what the unfused chain computes: x_new = x + alpha*d, (f, g) at x_new, the
-ring rows in history dtype, the five pair/convergence scalars, and the
-pre-update history matvecs S@g_new / Y@g_new.  On CPU the Pallas path runs
-in interpret mode (tests/conftest.py forces the cpu backend).
+The fused tail (kernels/tail.py::make_fused_tail) must return exactly what
+the unfused chain computes: x_new = x + alpha*d, (f, g) at x_new, the ring
+rows in history dtype, the seven pair/convergence scalars, and the
+pre-update history matvecs S@y_new / Y@y_new.  On the CPU the Triton kernel
+runs in interpret mode, asked for explicitly (tests/conftest.py forces the
+cpu backend).
 """
 import jax
 import jax.numpy as jnp
@@ -13,9 +14,9 @@ import pytest
 
 from tpu_lbfgs.config import LBFGSConfig
 from tpu_lbfgs.core.solver import init_state, iterate, make_value_and_grad
-from tpu_lbfgs.kernels.pallas_ops import (
-    _fused_tail_pallas,
+from tpu_lbfgs.kernels.tail import (
     fused_tail_jnp,
+    fused_tail_triton,
     make_fused_tail,
 )
 from tpu_lbfgs.problems import get_problem
@@ -39,13 +40,14 @@ def _inputs(d, m, hdtype, seed=0):
 @pytest.mark.parametrize("hdtype", [jnp.float32, jnp.bfloat16])
 @pytest.mark.parametrize("with_matvec", [True, False])
 def test_pallas_matches_jnp(problem, hdtype, with_matvec):
-    d, m = 1152, 4  # d % 128 == 0 but not a block multiple: padding exercised
+    d, m = 1152, 4  # not a block multiple: masked lanes exercised
     x, dv, alpha, g, S, Y = _inputs(d, m, hdtype)
     p = get_problem(problem)
     vg = make_value_and_grad(p.f, p.grad)
 
     ref = fused_tail_jnp(vg, x, dv, alpha, g, S, Y, with_matvec)
-    out = _fused_tail_pallas(problem, x, dv, alpha, g, S, Y, with_matvec)
+    out = fused_tail_triton(problem, x, dv, alpha, g, S, Y, with_matvec,
+                            block=256, interpret=True)
 
     names = ["x_new", "f_new", "g_new", "s_row", "y_row",
              "sy", "yy", "gg", "dgn", "ggn", "ygn", "t1", "t2"]
@@ -60,16 +62,24 @@ def test_pallas_matches_jnp(problem, hdtype, with_matvec):
 
 
 def test_dispatch_falls_back_on_ineligible_shape():
-    # d not divisible by 128 -> jnp path, bitwise equal to fused_tail_jnp.
+    # f64 vectors (no kernel) -> the jnp path even with interpret=True,
+    # bitwise equal to fused_tail_jnp; and off CUDA the kernel-eligible
+    # f32 call lowers to the same jnp twin.
     d, m = 100, 3
     x, dv, alpha, g, S, Y = _inputs(d, m, jnp.float32)
     p = get_problem("rosenbrock")
     vg = make_value_and_grad(p.f, p.grad)
+    as64 = lambda *a: tuple(v.astype(jnp.float64) for v in a)
     tail = make_fused_tail("rosenbrock", vg, with_matvec=True,
-                           use_pallas=True)
-    out = tail(x, dv, alpha, g, S, Y)
-    ref = fused_tail_jnp(vg, x, dv, alpha, g, S, Y, True)
+                           interpret=True)
+    out = tail(*as64(x, dv, alpha, g, S, Y))
+    ref = fused_tail_jnp(vg, *as64(x, dv, alpha, g, S, Y), True)
     for a, b in zip(out, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    on_cpu = jax.jit(make_fused_tail("rosenbrock", vg, with_matvec=True))
+    ref32 = jax.jit(lambda *a: fused_tail_jnp(vg, *a, True))
+    for a, b in zip(on_cpu(x, dv, alpha, g, S, Y),
+                    ref32(x, dv, alpha, g, S, Y)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
@@ -82,7 +92,7 @@ def test_solver_trajectory_matches_unfused(hdtype):
                       direction="compact_incremental", m=4,
                       ls_eval="polynomial", use_pallas=False,
                       history_dtype=hdtype)
-    tail = fused_tail_for("rosenbrock", with_matvec=True, use_pallas=True)
+    tail = fused_tail_for("rosenbrock", with_matvec=True, interpret=True)
 
     x0 = jnp.asarray(np.random.default_rng(1).uniform(-2, 2, 256), jnp.float32)
     s_a = init_state(vg, x0, cfg.m, cfg.history_dtype)
@@ -132,18 +142,19 @@ def test_fused_tail_incremental_update_semantics():
 
 
 def test_auto_with_matvec_rule():
-    """In-kernel history matvecs exactly when the RESOLVED history streams
-    from HBM (the giant-d sweep's measured trade)."""
+    """with_matvec="auto" resolves to no matvecs at every size and history
+    dtype: no size rule is set on the GPU yet (ROADMAP S5), and the exact
+    default keeps the tail's outputs the plain contract's."""
     from tpu_lbfgs.problems.suite import auto_with_matvec, fused_tail_for
-    from tpu_lbfgs.utils.roofline import VMEM_RESIDENT_BYTES
 
     m = 10
-    d_small, d_big = 1 << 20, 1 << 26
-    assert not auto_with_matvec(m, d_small)            # resident f32
-    assert auto_with_matvec(m, d_big)                  # streams
-    # an auto-selected bf16 ring can itself be resident again
-    d_mid = int(VMEM_RESIDENT_BYTES // (2 * m * 4)) + 1024   # f32 streams
-    assert auto_with_matvec(m, d_mid)
-    assert not auto_with_matvec(m, d_mid, "bfloat16")  # bf16 halves it back
-    # fused_tail_for("auto") without d falls back to the resident default
-    fused_tail_for("rosenbrock")                       # must not raise
+    for d in (1 << 10, 1 << 20, 1 << 26):
+        for hd in (None, "bfloat16"):
+            assert not auto_with_matvec(m, d, hd)
+    assert not auto_with_matvec(m, 1024, None, batch=4096)
+    # "auto" with and without d builds a tail that returns no matvecs
+    x, dv, alpha, g, S, Y = _inputs(256, 2, jnp.float32)
+    for kw in ({}, {"d": 256}):
+        tail = fused_tail_for("rosenbrock", with_matvec="auto", **kw)
+        out = tail(x, dv, alpha, g, S, Y)
+        assert out[11] is None and out[12] is None

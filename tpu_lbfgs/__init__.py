@@ -1,10 +1,12 @@
-"""tpu-lbfgs: a TPU-native L-BFGS optimization framework.
+"""tpu-lbfgs: an L-BFGS optimization framework whose whole solve runs on the
+accelerator.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the CUDA/C++
-reference ``ndzajic1/cuda-lbfgs`` (see SURVEY.md), redesigned TPU-first: the
-whole solve runs inside one jitted while_loop (zero host round-trips), batches
-of independent instances vmap per chip, and the parameter vector & curvature
-history shard across device meshes with psum reductions.
+JAX/XLA/Pallas implementation with the capabilities of the CUDA/C++
+reference ``ndzajic1/cuda-lbfgs`` (see SURVEY.md): the whole solve runs
+inside one jitted while_loop (no per-iteration host round-trips beyond the
+loop predicate), batches of independent instances vmap on one device, and
+the parameter vector & curvature history shard across device meshes with
+psum reductions.
 """
 
 from .config import (

@@ -88,13 +88,11 @@ def vmap_minimize(f: Callable, x0_batch: Array,
     lockstep: "while" (default) freezes each lane the moment it finishes —
     the vmapped while_loop, whose lane masking costs a full-state select per
     iteration; "bounded" runs every lane for exactly cfg.max_iters cond-free
-    iterations (solve_bounded: +37% measured at B=4096 x d=1024; failed
+    iterations (solve_bounded: no per-iteration lane masking; failed
     lanes identical, early-converging lanes keep polishing past tol).
 
     cfg.history_dtype="auto" resolves on the TOTAL batched footprint
-    (B x 2 m d): the per-instance ring of a large batch looks VMEM-resident
-    while the aggregate fully streams — B=4096 x d=1024 resolves to
-    bfloat16, B=4 x d=1024 to f32 (roofline.history_streams).
+    (resolve_history_dtype gets the batch size), not the per-instance ring.
 
     Repeat calls with the same cfg and stable callable references reuse the
     compiled batched program.

@@ -1,13 +1,10 @@
 """Scaling-efficiency measurement: iterations/s at 1 shard vs N shards.
 
-BASELINE.md north star: "scaling efficiency reported at 1 chip / 1 host /
-N >= 2 hosts".  On real hardware this runs over the pod mesh with the FAST
-sharded stack (the per-shard fused Pallas kernels inside shard_map —
-dist.pallas_sharded); in this environment it is exercised on the
-8-virtual-device CPU mesh, where Pallas only has interpret mode (pure Python,
-useless for timing), so the CPU sweep measures the jnp-shard path — the same
-SPMD program shape and collectives, different kernel backend.  The report
-records which stack ran (``stack`` per row).
+BASELINE.md north star: "scaling efficiency reported at 1 device / N
+devices".  With cfg.use_pallas the sharded stack runs the per-shard fused
+tail inside shard_map (dist.pallas_sharded; the Triton kernel on the GPU).
+The report records which stack ran (``stack`` per row) and the device
+(harness.require_gpu: a measurement needs a GPU).
 
 Efficiency definition: eff(N) = T(1) / T(N) / N for a FIXED global problem
 size d (strong scaling) — perfect overlap of the N-way-split memory streams
@@ -28,12 +25,12 @@ from ..core.solver import init_state, make_value_and_grad, solve_from_state
 from ..dist.mesh import make_mesh, state_shardings
 from ..dist.pallas_sharded import (
     SHARDED_PALLAS_PROBLEMS,
-    shard_alignment,
     shardmap_fused_tail,
     shardmap_fused_vg,
 )
 from ..dist.sharded import _pad_for_mesh
 from ..problems import get_problem
+from .harness import require_gpu
 
 
 def bench_sharded(problem: str, d: int, iters: int, cfg: LBFGSConfig,
@@ -43,33 +40,30 @@ def bench_sharded(problem: str, d: int, iters: int, cfg: LBFGSConfig,
                   with_matvec: bool = False) -> dict:
     """Fixed-iteration throughput with the vector sharded over n_devices.
 
-    use_pallas=None selects the fast stack automatically: the shard-map
-    Pallas kernels on a real TPU backend, the jnp-shard path elsewhere
-    (interpret-mode Pallas is not a benchmark).  n_devices == 1 runs the
-    same stacks unsharded (the scaling baseline).
+    use_pallas=None selects the fused-tail stack for f32 suite problems.
+    n_devices == 1 runs the same stacks unsharded (the scaling baseline).
 
     with_matvec: compute the incremental-products history matvecs inside the
-    fused tail, finished by the packed psum — the measured giant-d winner
-    configuration (PERFORMANCE.md).  Recorded in the ``stack`` label.
+    fused tail, finished by the packed psum.  Recorded in the ``stack``
+    label.
     """
     from jax.sharding import NamedSharding, PartitionSpec as P
 
+    device = require_gpu()
     if use_pallas is None:
-        use_pallas = (jax.default_backend() == "tpu"
-                      and dtype == jnp.float32
+        use_pallas = (dtype == jnp.float32
                       and problem in SHARDED_PALLAS_PROBLEMS)
     elif use_pallas and (
             problem not in SHARDED_PALLAS_PROBLEMS or dtype != jnp.float32):
-        # Explicit use_pallas=True for a problem without shard-composable
-        # kernels (or a non-f32 dtype the kernels don't take): warn and run
-        # the jnp path rather than KeyError inside shardmap_fused_vg — and
-        # for n_devices == 1 rather than silently benchmarking the jnp
-        # fallback under a 'pallas-unsharded' label (the single-device fused
-        # helpers fall back for exactly the same problem set).
+        # Explicit use_pallas=True for a problem without a shard-composable
+        # fused tail (or a non-f32 dtype the kernel doesn't take): warn and
+        # run the jnp path rather than KeyError inside shardmap_fused_vg —
+        # and for n_devices == 1 rather than benchmarking the jnp path
+        # under a 'fused-unsharded' label.
         import warnings
 
         warnings.warn(
-            f"no {'sharded ' if n_devices > 1 else ''}Pallas kernels for "
+            f"no {'sharded ' if n_devices > 1 else ''}fused tail for "
             f"problem={problem!r} dtype={jnp.dtype(dtype).name}; "
             f"benchmarking the jnp path", RuntimeWarning, stacklevel=2)
         use_pallas = False
@@ -85,27 +79,25 @@ def bench_sharded(problem: str, d: int, iters: int, cfg: LBFGSConfig,
     x0 = jnp.asarray(rng.uniform(-2, 2, d), dtype)
     fused_tail = None
     if use_pallas and n_devices > 1:
-        mult = shard_alignment(n_devices)
         f, vg, x0, d_orig, dir_poly = _pad_for_mesh(
-            p.f, vg, x0, n_devices, mult=mult, dir_poly=dir_poly)
+            p.f, vg, x0, n_devices, dir_poly=dir_poly)
         vg = shardmap_fused_vg(problem, mesh, d_orig)
         fused_tail = shardmap_fused_tail(problem, mesh, d_orig,
                                          with_matvec=with_matvec)
-        stack = "pallas-shard+matvec" if with_matvec else "pallas-shard"
+        stack = "fused-shard+matvec" if with_matvec else "fused-shard"
     elif use_pallas:
-        # n_devices == 1: the unsharded fast stack on the ORIGINAL d.  The
-        # single-device fused kernels handle arbitrary d internally; padding
-        # here would pair the padded f with a raw vg whose pad-coordinate
-        # gradient is nonzero for chain objectives (a different problem).
+        # n_devices == 1: the unsharded fused stack on the ORIGINAL d (the
+        # tail handles any d; padding here would pair the padded f with a
+        # raw vg whose pad-coordinate gradient is nonzero for chain
+        # objectives — a different problem).
         from ..problems.suite import fused_tail_for, fused_value_and_grad
 
         f = p.f
-        vg = fused_value_and_grad(problem, use_pallas=True)
+        vg = fused_value_and_grad(problem)
         fused_tail = fused_tail_for(problem, with_matvec=with_matvec,
-                                    use_pallas=True,
                                     accurate_dots=cfg.accurate_dots)
-        stack = ("pallas-unsharded+matvec" if with_matvec
-                 else "pallas-unsharded")
+        stack = ("fused-unsharded+matvec" if with_matvec
+                 else "fused-unsharded")
     else:
         f, vg, x0, d_orig, dir_poly = _pad_for_mesh(
             p.f, vg, x0, n_devices, dir_poly=dir_poly)
@@ -122,16 +114,15 @@ def bench_sharded(problem: str, d: int, iters: int, cfg: LBFGSConfig,
                   in_shardings=(st_sh,), out_shardings=st_sh)
 
     state = make(x0)
-    out = run(state)
-    float(out.f)                       # warmup fence
+    out = jax.block_until_ready(run(state))       # warmup / compile
     best = np.inf
     for _ in range(repeats):
         t0 = time.perf_counter()
-        out = run(state)
-        float(out.f)
+        out = jax.block_until_ready(run(state))
         best = min(best, time.perf_counter() - t0)
     return {"n_devices": n_devices, "iters_per_s": iters / best,
-            "wall_s": best, "final_f": float(out.f), "stack": stack}
+            "wall_s": best, "final_f": float(out.f), "stack": stack,
+            "device": device}
 
 
 def scaling_sweep(problem: str = "rosenbrock", d: int = 1 << 22,

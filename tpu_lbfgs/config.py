@@ -97,9 +97,9 @@ class LBFGSConfig:
 
     # --- direction -------------------------------------------------------------
     # "two_loop": lax.scan two-loop recursion (reference-parity semantics).
-    # "compact":  Byrd–Nocedal–Schnabel compact representation — the TPU-native
-    #             formulation: two (m,d) matmuls + O(m^2) triangular solves,
-    #             one fused reduction per phase when sharded.
+    # "compact":  Byrd–Nocedal–Schnabel compact representation: two (m,d)
+    #             contraction passes + O(m^2) triangular solves, one fused
+    #             reduction per phase when sharded.
     # "compact_incremental": compact with the history products (S'Y, Y'Y,
     #             S'g, Y'g) maintained across iterations from gradient
     #             differences and small-matrix identities — the direction's
@@ -112,9 +112,8 @@ class LBFGSConfig:
     # additive f32 drift in the off-diagonal products.  Implemented as
     # CHUNKED while_loop segments with the recompute BETWEEN segments
     # (solve_from_state), so the contractions cost ~2m/K extra passes
-    # amortized — the earlier in-loop lax.cond formulation ran them every
-    # iteration because XLA-TPU executes both cond branches (7x measured at
-    # d=2^20; see tests/test_refresh.py for the drift bound this buys).
+    # amortized and no conditional sits in the per-iteration loop (see
+    # tests/test_refresh.py for the drift bound this buys).
     # None (default) is fine for typical runs: the no-cancellation
     # incremental updates (u1 = S@y_new directly) plus the curvature
     # pair-skip keep every observed f32 workload finite
@@ -153,8 +152,7 @@ class LBFGSConfig:
     # phi call per round.  The reference's paper describes evaluating
     # "multiple step sizes in parallel" but its code never implements it
     # (cuda_lbfgs.pdf §II vs the serial loop at L-BFGS-Backtracking.cu:314-341);
-    # on TPU the batched evaluation is a single fused pass over (x, d), so a
-    # full ladder costs ~one trial's HBM time.  The accepted alpha is
+    # here the ladder is one vmapped evaluation.  The accepted alpha is
     # bit-identical to sequential backtracking.
     spec_width: int = 8
 
@@ -170,26 +168,26 @@ class LBFGSConfig:
     ls_eval: str = "direct"
 
     # --- execution -------------------------------------------------------------
-    # Use Pallas fused kernels where available (f32 only); falls back to jnp.
+    # Run the fused iteration tail (kernels.tail: a Triton kernel on the
+    # GPU, its XLA twin elsewhere) where the caller provides it: the bench
+    # harness, the CLI's --pallas and the sharded solves build it for f32
+    # suite problems.
     use_pallas: bool = False
     # Store the (m, d) curvature history in bfloat16 (compute stays f32):
-    # halves the direction phase's HBM traffic and feeds the MXU its native
-    # dtype.  The curvature scalars sy/yy are computed in full precision
-    # BEFORE the cast, so the update/skip decisions are unaffected; the
-    # direction itself becomes slightly approximate (quasi-Newton methods
-    # tolerate inexact H well — expect a few % more iterations, large
-    # wall-clock win at big d).  None = same dtype as x.
-    # "auto" = f32 while the (2, m, d) ring is VMEM-resident (bf16 only adds
-    # convert work there), bfloat16 once it streams from HBM (measured 1.42x
-    # at d=2^26 — giant_sweep_results.jsonl); resolved per-solve in
-    # init_state.
+    # halves the direction phase's memory traffic.  The curvature scalars
+    # sy/yy are computed in full precision BEFORE the cast, so the
+    # update/skip decisions are unaffected; the direction itself becomes
+    # slightly approximate (quasi-Newton methods tolerate inexact H well —
+    # expect a few % more iterations).  None = same dtype as x.
+    # "auto" is resolved per solve by core.solver.resolve_history_dtype
+    # (currently the input dtype; ROADMAP S5).
     history_dtype: Optional[str] = None  # None | "bfloat16" | "auto"
     # Compensated (Neumaier) reductions for the curvature-pair scalars
     # (s.y, y.y, ||g||^2) — recovers f32 bits lost to partial-sum rounding at
-    # very large d without f64 arithmetic (utils/accurate.py).  On the
-    # Pallas paths the kernels compensate their cross-block scalar
-    # accumulation in-kernel (kernels._neumaier_add); a fused_tail must be
-    # built with accurate_dots=True (fused_tail_for) or the solver raises.
+    # very large d without f64 arithmetic (utils/accurate.py).  The fused
+    # tail compensates its cross-block sum of per-block partials; a
+    # fused_tail must be built with accurate_dots=True (fused_tail_for) or
+    # the solver raises.
     accurate_dots: bool = False
     # Record per-iteration trace (f, ||g||, alpha, evals) — uses a bounded scan.
     record_trace: bool = False

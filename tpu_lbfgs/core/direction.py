@@ -23,12 +23,11 @@ history; verified against each other in tests/test_direction.py):
                [-R^{-1},                         0      ]]
 
     which collapses the 2m *sequential* dot+axpy passes of the two-loop into
-    TWO large matmul passes over the history plus O(m^2) work on tiny
-    matrices.  This is the TPU-native formulation: the (2m, d) contraction
-    maps onto the MXU / a single fused reduction, and under d-axis sharding
-    the whole direction costs ONE psum of a (2m, m+1) block instead of the
-    2m+3 sequential scalar reductions per iteration the two-loop needs
-    (SURVEY.md §7 "sharded two-loop" hard part).
+    TWO large contraction passes over the history plus O(m^2) work on tiny
+    matrices: the (2m, d) contraction is one streaming pass, and under
+    d-axis sharding the whole direction costs ONE psum of a (2m, m+1) block
+    instead of the 2m+3 sequential scalar reductions per iteration the
+    two-loop needs (SURVEY.md §7 "sharded two-loop" hard part).
 
 Ring-buffer bookkeeping: pair p lives in slot p % m; logical order is
 reconstructed by permuting the small (m,) / (m, m) quantities only — the big
@@ -36,6 +35,7 @@ reconstructed by permuting the small (m,) / (m, m) quantities only — the big
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Tuple
 
 import jax
@@ -43,14 +43,14 @@ import jax.numpy as jnp
 from jax import Array, lax
 
 from ..config import LBFGSConfig
-from ..kernels import combine_direction
 from ..types import LBFGSState
 
 import os
 # Measurement-only A/B switch: TPU_LBFGS_PERM=gather restores the index-
-# gather small-matrix reordering for throughput attribution
-# (scripts/batch_opt.py; see _perm_onehot for the measured comparison).
+# gather small-matrix reordering (ROADMAP S6 queues the A/B on the GPU).
 _ONEHOT = os.environ.get("TPU_LBFGS_PERM", "onehot") == "onehot"
+
+HIGHEST = lax.Precision.HIGHEST
 
 
 def _ring_logical_slots(n_pairs: Array, m: int) -> Tuple[Array, Array]:
@@ -66,20 +66,17 @@ def _perm_onehot(slots: Array, m: int, dtype) -> Array:
     """One-hot permutation matrix P with P[l, p] = 1 iff slots[l] == p, so
     P @ v_phys gathers into logical order and P.T @ v_log scatters back.
 
-    The small-matrix reorderings run as these (m, m) matmuls rather than
-    ``A[slots][:, slots]`` index gathers: under ``vmap`` a per-lane dynamic
-    gather lowers to an XLA gather op that measured 0.76 ms/iter for ONE
-    (m, m) double-permute at B=4096 — 4x the one-hot contraction (0.18 ms)
-    and alone half the round-4 batch cell's roofline gap
-    (scripts/batch_opt.py, batch_opt_results.json)."""
+    The small-matrix reorderings run as these (m, m) products rather than
+    ``A[slots][:, slots]`` index gathers, which under ``vmap`` lower to
+    per-lane XLA gather ops.  The products are exact reorderings only at
+    full precision, so every product with P states HIGHEST."""
     return (slots[..., :, None]
             == jnp.arange(m, dtype=slots.dtype)).astype(dtype)
 
 
 def _newest_scalars(state: LBFGSState, m: int) -> Tuple[Array, Array]:
-    """(s.y, y.y) of the newest pair via a one-hot dot (same gather-cost
-    argument as _perm_onehot; a batched 1-element gather is still a
-    gather)."""
+    """(s.y, y.y) of the newest pair via a one-hot select-and-sum (a
+    batched 1-element gather is still a gather op)."""
     newest = (state.n_pairs - 1) % m
     oh = (jnp.arange(m, dtype=newest.dtype) == newest)
     dt = state.sy_hist.dtype
@@ -102,6 +99,23 @@ def _gamma(state: LBFGSState, m: int) -> Array:
 def two_loop_direction(cfg: LBFGSConfig, state: LBFGSState) -> Array:
     """d = -H g via lax.scan two-loop over the ring buffer."""
     return _two_loop_core(cfg, state)[0]
+
+
+def combine_direction(g: Array, s_hist: Array, y_hist: Array, v: Array,
+                      u: Array, gamma: Array) -> Array:
+    """r = gamma*g + v@S - gamma*(u@Y): the compact representation's second
+    pass over the (m, R, L) history, as one fused contraction.  The
+    coefficient vectors are cast to the history dtype so the operands match
+    (bf16 x bf16 -> f32 accumulate; identical to the f32 path when the
+    history is f32)."""
+    hdtype = s_hist.dtype
+    dn = (((0,), (0,)), ((), ()))           # (m,) x (m, R, L) -> (R, L)
+    dot = partial(lax.dot_general, precision=HIGHEST,
+                  preferred_element_type=g.dtype)
+    vs = dot(v.astype(hdtype), s_hist, dn)
+    uy = dot(u.astype(hdtype), y_hist, dn)
+    r3 = gamma * g.reshape(s_hist.shape[1:]) + vs - gamma * uy
+    return r3.reshape(g.shape)
 
 
 def _two_loop_core(cfg: LBFGSConfig, state: LBFGSState):
@@ -187,14 +201,11 @@ def _compact_core(cfg: LBFGSConfig, state: LBFGSState, SY_p: Array,
                   YY_p: Array, Sg_p: Array, Yg_p: Array):
     """Shared small-matrix algebra: physical-order products -> (d, DirAux).
 
-    The whole small-matrix head (logical-order reorder via one-hot
-    contractions, masked R build, the two triangular solves, scatter-back,
-    gamma, phi'(0)) lives in kernels.chain: unbatched calls trace the exact
-    jnp formulation documented there (one-hot perms, not gathers —
-    batch_opt_results.json; library solves, not unrolled substitution —
-    the measured in-program winner), and under ``vmap`` the custom_vmap
-    rule fuses the ~50-op chain into ONE Pallas kernel over lane blocks
-    (the batch cell's residual bottleneck was op granularity, not bytes).
+    The whole small-matrix head (logical-order reorder, masked R build,
+    the two triangular solves, scatter-back, gamma, phi'(0)) lives in
+    kernels.chain: unbatched calls trace the plain jnp formulation
+    documented there, and under ``vmap`` the custom_vmap rule runs the
+    chain as ONE Triton kernel over lane blocks on the GPU.
     """
     from ..kernels.chain import make_compact_chain
 
@@ -208,12 +219,8 @@ def _compact_core(cfg: LBFGSConfig, state: LBFGSState, SY_p: Array,
         state.n_pairs, state.g_norm)
 
     # --- second pass over the history: r = gamma*g + S'v - gamma * Y'u -------
-    # Measured on v5e (d=2^20, m=10): XLA's fused matmul beats the Pallas
-    # combine kernel inside the solver loop (1594 vs 860 it/s end-to-end), so
-    # the combine always takes the jnp path; the Pallas variant remains
-    # available directly from tpu_lbfgs.kernels.
     r_vec = combine_direction(g, state.s_hist, state.y_hist, v_phys, u_phys,
-                              gamma, use_pallas=False)
+                              gamma)
 
     fallback = fb_pre | ~jnp.all(jnp.isfinite(r_vec))
 
@@ -244,14 +251,12 @@ def history_products(state: LBFGSState):
     dn_mm = (((1, 2), (1, 2)), ((), ()))   # (m,R,L) x (m,R,L) -> (m,m)
     dn_mv = (((1, 2), (0, 1)), ((), ()))   # (m,R,L) x (R,L)   -> (m,)
     g3 = state.g.reshape(state.s_hist.shape[1:])
-    SY = jax.lax.dot_general(state.s_hist, state.y_hist, dn_mm,
-                             preferred_element_type=dtype)
-    YY = jax.lax.dot_general(state.y_hist, state.y_hist, dn_mm,
-                             preferred_element_type=dtype)
-    Sg = jax.lax.dot_general(state.s_hist, g3, dn_mv,
-                             preferred_element_type=dtype)
-    Yg = jax.lax.dot_general(state.y_hist, g3, dn_mv,
-                             preferred_element_type=dtype)
+    dot = partial(lax.dot_general, precision=HIGHEST,
+                  preferred_element_type=dtype)
+    SY = dot(state.s_hist, state.y_hist, dn_mm)
+    YY = dot(state.y_hist, state.y_hist, dn_mm)
+    Sg = dot(state.s_hist, g3, dn_mv)
+    Yg = dot(state.y_hist, g3, dn_mv)
     return SY, YY, Sg, Yg
 
 

@@ -16,10 +16,10 @@ Iteration semantics mirrored from lbfgs.cpp:
   5. x_new, f_new; alpha < 1e-10 -> bail with old x    (:159-168)
   6. g_new; store (s, y) only when s.y > 0, ring-capped at m  (:171-195)
 
-Design notes (TPU-first):
+Design notes:
   - State is a fixed-shape pytree (types.LBFGSState); the step function is a
     pure ``state -> state`` map, so ``jax.vmap`` batches thousands of
-    independent instances per chip (done lanes freeze automatically under
+    independent instances per device (done lanes freeze automatically under
     vmapped while_loop) and d-axis sharding partitions huge instances with
     XLA inserting the psums for every dot product.
   - s.y and y.y are computed once, fused with the pair update, and cached in
@@ -39,10 +39,12 @@ import jax.numpy as jnp
 from jax import Array, lax
 
 from ..config import LBFGSConfig
-from ..kernels import iteration_tail
+from ..kernels.tail import history_matvecs, pair_scalars
 from ..linesearch.strategies import get_line_search
 from ..types import Guard, LBFGSState, SolveResult, Status, Trace, hist_block
 from .direction import compute_direction_with_aux
+
+HIGHEST = lax.Precision.HIGHEST
 
 ObjFn = Callable[[Array], Array]
 ValGradFn = Callable[[Array], Tuple[Array, Array]]
@@ -58,33 +60,28 @@ _COUNT_GUARDS = os.environ.get("TPU_LBFGS_NO_GUARD_COUNTERS", "") != "1"
 
 def resolve_history_dtype(history_dtype, m: int, d: int, dtype,
                           batch: int = 1) -> object:
-    """Resolve history_dtype="auto" (see init_state docstring): f32 while
-    the history ring fits VMEM-resident, bfloat16 once it streams; f64
-    inputs always keep full precision.
+    """Resolve history_dtype="auto" (see init_state docstring).
 
-    ``batch``: per-device vmapped lane count — residency is a property of
-    the TOTAL live footprint (batch x 2 m d), not the per-instance ring
-    (batch.vmapped.vmap_minimize and dist.sharded thread it through; a
-    B=4096 x d=1024 batch streams 335 MB of ring even though each instance's
-    80 KB looks resident).
-
-    Sublane-tiling condition: bf16 HBM tiles are (16, 128) vs f32's
-    (8, 128), so a ring whose per-instance row block R = d/128 is not a
-    multiple of 16 pads every row — at d=1024 (R=8) that is 100% waste and
-    bf16 measured SLOWER than f32 (2.73 vs 2.41 ms/iter at B=4096) while at
-    d=4096 (R=32) it wins (1.64 vs 1.80 at B=1024); batch_opt_results.json.
-    Auto therefore requires R % 16 == 0 (equivalently d % 2048 == 0) on top
-    of the streaming condition."""
+    "auto" keeps the ring in the input dtype (None): no size rule for a
+    bfloat16 ring has been measured on the GPU yet (ROADMAP S5), so the
+    exact choice is the default.  ``m``, ``d`` and ``batch`` (per-device
+    vmapped lane count) are the inputs such a rule keys on; callers pass
+    them already."""
     if history_dtype != "auto":
         return history_dtype
-    from ..types import hist_block
-    from ..utils.roofline import history_streams
+    return None
 
-    dtype = jnp.dtype(dtype)
-    streams = history_streams(m, d, dtype.itemsize, batch=batch)
-    tiles_cleanly = hist_block(d)[0] % 16 == 0
-    return "bfloat16" if (streams and tiles_cleanly
-                          and dtype == jnp.float32) else None
+
+def iteration_tail(x: Array, d: Array, alpha: Array, g: Array,
+                   g_new: Array, accurate: bool = False):
+    """(x_new, s, y, s.y, y.y, ||g_new||^2, d.g_new, g.g_new, y.g_new):
+    the pair and convergence scalars of one iteration, as one expression
+    XLA fuses into a multi-output reduction (x_new is re-derived, not read
+    back).  Replaces the reference's updateSolution + updateVectors kernels
+    plus separate cuBLAS Ddots (L-BFGS.cu:55-63,19-31,219-244,345-348).
+    ``accurate``: Neumaier-compensated reductions (cfg.accurate_dots)."""
+    s = alpha * d
+    return (x + s, s) + pair_scalars(s, d, g, g_new, accurate)
 
 
 def init_state(vg: ValGradFn, x0: Array, m: int,
@@ -93,12 +90,8 @@ def init_state(vg: ValGradFn, x0: Array, m: int,
     (lbfgs.cpp:29-30).  history_dtype optionally down-casts the (m, d) ring
     storage (cfg.history_dtype, e.g. "bfloat16").
 
-    history_dtype="auto" applies the measured size rule (PERFORMANCE.md
-    "VMEM residency" + the giant-d sweep): f32 history while the whole
-    (2, m, d) ring fits VMEM-resident (reads are then free and bf16 only
-    adds convert work — measured SLOWER at d=2^20), bfloat16 once it
-    must stream from HBM (measured 1.42x faster at d=2^26).  f64 inputs
-    always keep full-precision history (parity paths)."""
+    history_dtype="auto" is resolved by resolve_history_dtype (currently
+    the input dtype)."""
     x0 = jnp.asarray(x0)
     dtype = x0.dtype
     history_dtype = resolve_history_dtype(history_dtype, m, x0.shape[-1],
@@ -222,8 +215,7 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
         # accurate_dots=True / fused_tail_for(..., accurate_dots=True)) —
         # but silently running a PLAIN tail under cfg.accurate_dots would
         # drop the requested Neumaier compensation exactly where it was
-        # asked for (giant-d f32).  The non-fused Pallas path below passes
-        # the flag through iteration_tail itself.
+        # asked for (giant-d f32).
         raise ValueError(
             "cfg.accurate_dots requires a fused tail built with "
             "accurate_dots=True (fused_tail_for(..., accurate_dots=True))")
@@ -271,36 +263,22 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
         f_new, g_new = vg(x_new)
 
         # --- curvature pair, fused scalars (lbfgs.cpp:174-181) ---------------
-        # One fused pass computes s, y and all three reductions (and
-        # re-derives x_new without reading it back) under Pallas.
-        if cfg.accurate_dots and not cfg.use_pallas:
+        x_new, s, y, sy, yy, gg_new, dgn, ggn, ygn = iteration_tail(
+            x, d, alpha, g, g_new, accurate=cfg.accurate_dots)
+        if cfg.damping is None:
+            ss = None
+        elif cfg.accurate_dots:
             from ..utils.accurate import compensated_dot
-            s = alpha * d
-            y = g_new - g
-            x_new = x + s
-            sy = compensated_dot(s, y)
-            yy = compensated_dot(y, y)
-            gg_new = compensated_dot(g_new, g_new)
-            dgn = compensated_dot(d, g_new)
-            ggn = compensated_dot(g, g_new)
-            ygn = compensated_dot(y, g_new)
-            ss = compensated_dot(s, s) if cfg.damping is not None else None
+            ss = compensated_dot(s, s)
         else:
-            # accurate_dots + use_pallas: the tail kernel compensates its
-            # cross-block accumulation in-kernel (kernels._neumaier_add).
-            x_new, s, y, sy, yy, gg_new, dgn, ggn = iteration_tail(
-                x, d, alpha, g, g_new, use_pallas=cfg.use_pallas,
-                accurate=cfg.accurate_dots)
-            ygn = jnp.vdot(y, g_new)   # y_new.g_new (exact; fuses into the
-            #                            tail's read of y/g_new)
-            ss = jnp.vdot(s, s) if cfg.damping is not None else None
+            ss = jnp.vdot(s, s, precision=HIGHEST)
         s_h = s.astype(hdtype)
         y_h = y_raw_h = y.astype(hdtype)
 
     if cfg.damping is not None:
         # Powell damping with B0 = I/gamma (config.py docstring): blend
         # y_bar = theta*y + (1-theta)*s/gamma when s.y < mu * s.s/gamma.
-        # Runs uniformly AFTER either tail (jnp, Pallas, fused, sharded):
+        # Runs uniformly AFTER either tail (plain, fused, sharded):
         # the blended scalars follow algebraically from the raw tail
         # reductions —
         #   s.y_bar     = theta*sy  + (1-theta)*ss/gamma
@@ -379,7 +357,6 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     # as (S@g_new) - (S@g): catastrophic cancellation when ||y|| << ||g||,
     # observed as degenerate directions on ~1/1000 f32 Rosenbrock lanes.
     if cfg.direction == "compact_incremental":
-        dn3 = (((1, 2), (0, 1)), ((), ()))
         if t1_pre is not None:
             # From the fused tail, contracted over the PRE-update rows: rows
             # other than slot are unchanged by the ring write, and the slot
@@ -393,14 +370,9 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
             # the damped row here silently corrupted every off-slot Sg/Yg
             # entry on damped iterations (round-4 advisor finding).
             # y stays in history dtype so the operands match (bf16 x bf16 ->
-            # f32 is MXU-native; NOTE measured: matched dtypes do NOT close
-            # bf16's ~20% end-to-end deficit vs f32 under the lane-tiled
-            # layout — f32 history remains the fast default).
-            y3 = y_raw_h.reshape(blk)
-            u1 = lax.dot_general(state.s_hist, y3, dn3,
-                                 preferred_element_type=g.dtype)
-            u2 = lax.dot_general(state.y_hist, y3, dn3,
-                                 preferred_element_type=g.dtype)
+            # f32 accumulate); HIGHEST keeps f32 products out of TF32.
+            u1, u2 = history_matvecs(state.s_hist, state.y_hist, y_raw_h,
+                                     g.dtype)
         # Sg/Yg advance additively: s_i.g_new = s_i.g + s_i.y_raw; the slot
         # entries come from the exact tail reductions (Yg[slot] is the
         # STORED row's dot, i.e. the damped y_bar.g_new when damping fired).
@@ -418,11 +390,8 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
         # order and is never read by the compact algebra (R = triu) — left
         # stale by design.
         if cfg.damping is not None:
-            s3 = s_h.reshape(blk)
-            us1 = lax.dot_general(state.s_hist, s3, dn3,
-                                  preferred_element_type=g.dtype)
-            us2 = lax.dot_general(state.y_hist, s3, dn3,
-                                  preferred_element_type=g.dtype)
+            us1, us2 = history_matvecs(state.s_hist, state.y_hist, s_h,
+                                       g.dtype)
             col1 = theta * u1 + one_m * us1
             col2 = theta * u2 + one_m * us2
         else:
@@ -444,11 +413,11 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
         Sg_next = jnp.where(failed, state.Sg, Sg_next)
         Yg_next = jnp.where(failed, state.Yg, Yg_next)
 
-        # Drift refresh is NOT done here: an in-loop lax.cond executes both
-        # branches on TPU, so a k-scheduled recompute would cost its full
-        # contractions EVERY iteration (measured 7x at d=2^20).  Instead
-        # solve_from_state splits the run into while_loop segments and
-        # recomputes the products BETWEEN segments (cfg.refresh_interval).
+        # Drift refresh is NOT done here: solve_from_state splits the run
+        # into while_loop segments and recomputes the products BETWEEN
+        # segments (cfg.refresh_interval), so no in-loop conditional sits
+        # on the per-iteration path (ROADMAP D3 queues an A/B against an
+        # in-loop lax.cond on the GPU).
     else:
         SY_next, YY_next = state.SY, state.YY
         Sg_next, Yg_next = state.Sg, state.Yg
@@ -567,9 +536,7 @@ def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     split into nested while_loops: an inner loop of up to refresh_interval
     iterations, an outer loop that recomputes the history products between
     segments (refresh_products).  The contractions therefore run once per
-    SEGMENT — amortized to ~(2m passes / interval) extra traffic — instead
-    of the in-loop lax.cond formulation whose both-branches execution made
-    them run every iteration (7x measured; config.py docstring history).
+    SEGMENT — amortized to ~(2m passes / interval) extra traffic.
     """
     if cfg.record_trace:
         return _solve_traced(cfg, f, vg, state, dir_poly, fused_tail,
@@ -653,7 +620,7 @@ def make_solve_segment(cfg: LBFGSConfig, f: ObjFn, grad=None,
 
     The input state's buffers are DONATED (types.py design note): at giant d
     the state is multi-GB (6.7 GB at d=2^26, m=10, f32) and double-buffering
-    it across segment boundaries would exhaust the 16 GB HBM; donation lets
+    it across segment boundaries doubles the device footprint; donation lets
     XLA alias the output into the input buffers.  The caller must not reuse
     the passed-in state afterwards (jax enforces this).
 
@@ -702,8 +669,7 @@ def _solve_traced(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     inner scan of ``interval`` iterations, with refresh_products between —
     the same refresh points as the untraced chunked while_loop, so tracing a
     long run no longer silently disables the drift bound it is used to
-    diagnose (VERDICT r3 weak #6).  The refresh runs unconditionally per
-    segment (on TPU a lax.cond would execute both branches anyway); on an
+    diagnose.  The refresh runs unconditionally per segment; on an
     already-finished frozen state it merely recomputes the products, which
     nothing downstream reads.
     """

@@ -4,7 +4,6 @@ from .pallas_sharded import (
     SHARDED_PALLAS_PROBLEMS,
     shardmap_fused_tail,
     shardmap_fused_vg,
-    shardmap_multi_phi,
 )
 from .sharded import sharded_minimize, sharded_vmap_minimize
 from .shardmap_vg import shardmap_value_and_grad

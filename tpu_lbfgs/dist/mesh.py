@@ -2,7 +2,7 @@
 
 The reference is single-process single-GPU (no NCCL/MPI anywhere — SURVEY.md
 §2 distributed inventory); this layer is designed from scratch: a named mesh
-over ICI, the parameter vector / gradient / history sharded on the ``d`` axis,
+over the devices, the parameter vector / gradient / history sharded on the ``d`` axis,
 and every dot-product reduction compiled by XLA's SPMD partitioner into a
 local partial + psum.  The solver core stays annotation-free — sharding is
 applied at the jit boundary via in/out shardings, the idiomatic pjit recipe.

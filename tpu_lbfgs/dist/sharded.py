@@ -1,5 +1,5 @@
 """Sharded solves: the parameter vector and curvature history partitioned
-over the device mesh, reductions riding ICI via XLA-inserted psums.
+over the device mesh, reductions finished by XLA-inserted psums.
 
 Design (SURVEY.md §7 layer 5): the solver core is written in plain jnp ops on
 whole arrays; this layer only places data.  Under jit with sharded
@@ -33,11 +33,8 @@ from ..types import SolveResult
 from .mesh import make_mesh, result_shardings, state_shardings
 from .pallas_sharded import (
     SHARDED_PALLAS_PROBLEMS,
-    shard_alignment,
     shardmap_fused_tail,
     shardmap_fused_vg,
-    shardmap_multi_phi,
-    shardmap_multi_phi_dphi,
 )
 
 
@@ -55,11 +52,9 @@ def _pad_for_mesh(f, vg, x0, n_shards: int, mult: Optional[int] = None,
     that would corrupt the line-search polynomial even though the padded
     coordinates themselves never move.
 
-    The 128 factor keeps the history in its lane-tiled (m, R, 128) layout
+    The 128 factor keeps the history in its (m, R, 128) layout
     (types.hist_block) with the row-block axis R divisible by the mesh, so
     the (d,) shards and the history R-shards cover identical element ranges.
-    The Pallas-in-shard_map path passes a larger mult (shard_alignment) so
-    each shard's local block is whole (8, 128) tiles.
     """
     d = x0.shape[-1]
     if mult is None:
@@ -92,12 +87,9 @@ def _resolve_shard_local(cfg: LBFGSConfig, d_pad: int, n_shards: int,
     """Resolve history_dtype="auto" and with_matvec="auto" on the PER-DEVICE
     footprint: d_local = d_pad / n_shards on the vector axis, times
     ``batch_local`` lanes (instance batch / batch-axis mesh size on a 2-D
-    (b, d) mesh).  VMEM residency is a per-device property — each device
-    holds its own (batch_local, 2, m, d_local) ring slice — so the measured
-    rules (PERFORMANCE.md giant table: bf16 history + in-kernel matvecs win
-    exactly when the local ring streams from HBM) key on the full local
-    footprint, not the global d or the per-instance size (round-4 verdict
-    weak #2).  Returns (cfg-with-concrete-history-dtype, with_matvec bool)."""
+    (b, d) mesh) — each device holds its own (batch_local, 2, m, d_local)
+    ring slice, so any size rule keys on that, not on the global d.
+    Returns (cfg-with-concrete-history-dtype, with_matvec bool)."""
     from ..problems.suite import auto_with_matvec
 
     d_local = d_pad // n_shards
@@ -105,8 +97,8 @@ def _resolve_shard_local(cfg: LBFGSConfig, d_pad: int, n_shards: int,
                                    batch=batch_local)
     cfg = cfg.replace(history_dtype=hdtype)
     if with_matvec == "auto":
-        # The in-kernel matvecs (t1 = S@y_new, t2 = Y@y_new) are consumed
-        # only by the incremental-products direction; elsewhere they would be
+        # The tail's matvecs (t1 = S@y_new, t2 = Y@y_new) are consumed only
+        # by the incremental-products direction; elsewhere they would be
         # pure wasted bandwidth.
         with_matvec = (cfg.direction == "compact_incremental"
                        and auto_with_matvec(cfg.m, d_local, hdtype,
@@ -124,17 +116,16 @@ def sharded_minimize(f: Callable, x0, cfg: LBFGSConfig = LBFGSConfig(),
     transparently zero-padded (exactly equivalent — see _pad_for_mesh).
 
     ``problem``: optional suite-problem name.  With ``cfg.use_pallas`` and an
-    f32 x0, the solve then runs the fused Pallas kernels PER SHARD inside
-    shard_map (dist.pallas_sharded) — the fastest stack in sharded form.
-    Without a problem name the Pallas kernels cannot shard (they are
-    single-device programs; XLA would materialize full gathers around them),
-    so the solve falls back to the auto-partitioned jnp path with a warning.
+    f32 x0, the solve then runs the fused tail PER SHARD inside shard_map
+    (dist.pallas_sharded; the Triton kernel on the GPU).  Without a problem
+    name the tail cannot shard (the kernel is a single-device program; XLA
+    would materialize full gathers around it), so the solve falls back to
+    the auto-partitioned jnp path with a warning.
 
-    ``with_matvec``: "auto" (default) applies the measured per-shard
-    residency rule — the fused tail computes the incremental-products history
-    matvecs in-kernel (one packed psum finishes them) exactly when the local
-    ring streams from HBM, the measured giant-d winner configuration;
-    True/False force it.  Only meaningful on the Pallas-in-shard_map path.
+    ``with_matvec``: compute the incremental-products history matvecs in
+    the fused tail (one packed psum finishes them); "auto" resolves through
+    problems.suite.auto_with_matvec on the per-shard footprint.  Only
+    meaningful on the shard_map tail path.
     """
     mesh = mesh if mesh is not None else make_mesh(axis_name=d_axis)
     vg = make_value_and_grad(f, grad, value_and_grad)
@@ -150,34 +141,23 @@ def sharded_minimize(f: Callable, x0, cfg: LBFGSConfig = LBFGSConfig(),
     if n_shards > 1 and cfg.use_pallas and not pallas_shard:
         warnings.warn(
             "sharded_minimize: use_pallas=True has no shard-composable "
-            "kernels for this objective (pass problem=<suite name> with f32 "
+            "fused tail for this objective (pass problem=<suite name> with f32 "
             "x0 to enable the shard_map Pallas path); falling back to the "
             "auto-partitioned jnp path.", stacklevel=2)
         cfg = cfg.replace(use_pallas=False)
 
     if pallas_shard:
         f, vg, x0_arr, d_orig, dir_poly = _pad_for_mesh(
-            f, vg, x0, n_shards, mult=shard_alignment(n_shards),
-            dir_poly=dir_poly)
+            f, vg, x0, n_shards, dir_poly=dir_poly)
         cfg, wm = _resolve_shard_local(cfg, x0_arr.shape[-1], n_shards,
                                        x0_arr.dtype, with_matvec)
-        # Shard-local kernels replace both the objective interface and the
-        # iteration tail; the in-loop jnp ops (direction algebra, line-search
-        # scalars) stay auto-partitioned.  use_pallas=False inside stops
-        # iterate() from calling the single-device kernels directly.
+        # Shard-local evaluation replaces both the objective interface and
+        # the iteration tail; the in-loop jnp ops (direction algebra,
+        # line-search scalars) stay auto-partitioned.
         vg = shardmap_fused_vg(problem, mesh, d_orig, d_axis)
         fused_tail = shardmap_fused_tail(problem, mesh, d_orig, d_axis,
                                          with_matvec=wm,
                                          accurate_dots=cfg.accurate_dots)
-        if cfg.line_search == "backtracking_speculative" \
-                and cfg.ls_eval == "direct":
-            phi_batch = shardmap_multi_phi(problem, mesh, d_orig, d_axis)
-        if cfg.line_search in ("wolfe_interpolation_speculative",
-                               "backtracking_wolfe_speculative") \
-                and cfg.ls_eval == "direct":
-            phi_dphi_batch = shardmap_multi_phi_dphi(problem, mesh, d_orig,
-                                                     d_axis)
-        cfg = cfg.replace(use_pallas=False)
     else:
         f, vg, x0_arr, d_orig, dir_poly = _pad_for_mesh(
             f, vg, x0, n_shards, dir_poly=dir_poly)
@@ -234,12 +214,12 @@ def sharded_vmap_minimize(f: Callable, x0_batch,
     lanes as they finish.
 
     ``problem``: as in sharded_minimize — with ``cfg.use_pallas``, an f32
-    batch, and a suite problem name, the per-shard fused Pallas kernels run
-    inside shard_map, batched over the instance axis via
+    batch, and a suite problem name, the per-shard fused tail runs inside
+    shard_map, batched over the instance axis via
     ``jax.vmap(..., spmd_axis_name=batch_axis)`` (the vmapped shard_map's
-    in/out specs gain the batch axis; the pallas_calls batch into an extra
+    in/out specs gain the batch axis; a pallas_call batches into an extra
     grid dimension).  Otherwise the auto-partitioned jnp path runs, with a
-    warning when Pallas was requested but cannot compose.
+    warning when the fused tail was requested but cannot compose.
     """
     if mesh is None:
         raise ValueError("sharded_vmap_minimize requires an explicit 2-D mesh "
@@ -263,7 +243,7 @@ def sharded_vmap_minimize(f: Callable, x0_batch,
     if n_shards > 1 and cfg.use_pallas and not pallas_shard:
         warnings.warn(
             "sharded_vmap_minimize: use_pallas=True has no shard-composable "
-            "kernels for this objective (pass problem=<suite name> with f32 "
+            "fused tail for this objective (pass problem=<suite name> with f32 "
             "x0 to enable the shard_map Pallas path); falling back to the "
             "auto-partitioned jnp path.", stacklevel=2)
         cfg = cfg.replace(use_pallas=False)
@@ -274,8 +254,7 @@ def sharded_vmap_minimize(f: Callable, x0_batch,
     batch_local = -(-x0_batch.shape[0] // int(mesh.shape[batch_axis]))
     if pallas_shard:
         f, vg, x0_batch, d_orig, dir_poly = _pad_for_mesh(
-            f, vg, x0_batch, n_shards, mult=shard_alignment(n_shards),
-            dir_poly=dir_poly)
+            f, vg, x0_batch, n_shards, dir_poly=dir_poly)
         cfg, wm = _resolve_shard_local(cfg, x0_batch.shape[-1], n_shards,
                                        x0_batch.dtype, with_matvec,
                                        batch_local=batch_local)
@@ -283,15 +262,6 @@ def sharded_vmap_minimize(f: Callable, x0_batch,
         fused_tail = shardmap_fused_tail(problem, mesh, d_orig, d_axis,
                                          with_matvec=wm,
                                          accurate_dots=cfg.accurate_dots)
-        if cfg.line_search == "backtracking_speculative" \
-                and cfg.ls_eval == "direct":
-            phi_batch = shardmap_multi_phi(problem, mesh, d_orig, d_axis)
-        if cfg.line_search in ("wolfe_interpolation_speculative",
-                               "backtracking_wolfe_speculative") \
-                and cfg.ls_eval == "direct":
-            phi_dphi_batch = shardmap_multi_phi_dphi(problem, mesh, d_orig,
-                                                     d_axis)
-        cfg = cfg.replace(use_pallas=False)
     else:
         f, vg, x0_batch, d_orig, dir_poly = _pad_for_mesh(
             f, vg, x0_batch, n_shards, dir_poly=dir_poly)

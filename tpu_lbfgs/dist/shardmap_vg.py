@@ -4,11 +4,11 @@ The auto-partitioned jnp objectives already compile correctly under pjit
 (XLA inserts the halo collectives for the shifted slices); this module is the
 *explicit* formulation — per-shard chunk evaluation with one-element halo
 ``ppermute``s over the mesh axis and a single ``psum`` for the value — which
-is (a) the form that can host the per-shard Pallas kernels (a pallas_call
-inside shard_map runs on each device's local block; SURVEY.md §2 native-code
-census item 2: "Pallas reduction kernels feeding jax.lax.psum"), and (b) the
+is (a) the form that can host per-shard kernels (a pallas_call inside
+shard_map runs on each device's local block; SURVEY.md §2 native-code
+census item 2: "reduction kernels feeding jax.lax.psum"), and (b) the
 communication-minimal recipe: exactly one scalar each way per neighbor per
-evaluation, riding ICI.
+evaluation.
 
 Chain objectives (rosenbrock, coupled_quadratic) assign term i to the shard
 owning element i; the shard's last term needs the next shard's first element
@@ -16,9 +16,10 @@ owning element i; the shard's last term needs the next shard's first element
 last element (backward halo).
 
 ROLE: this module is the readable jnp REFERENCE for the halo/ownership
-semantics that ``dist.pallas_sharded`` implements in kernels — production
-sharded solves run pallas_sharded; tests/test_dist_pallas.py cross-asserts
-the two agree (``test_pallas_sharded_matches_shardmap_vg_reference``).
+semantics that ``dist.pallas_sharded`` implements with the kernel bodies —
+production sharded solves run pallas_sharded; tests/test_dist_pallas.py
+cross-asserts the two agree
+(``test_pallas_sharded_matches_shardmap_vg_reference``).
 """
 from __future__ import annotations
 

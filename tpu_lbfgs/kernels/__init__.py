@@ -1,15 +1,8 @@
-from .chain import chain_jnp, make_compact_chain
-from .pallas_ops import (
-    FUSED_VG,
+from .chain import chain_jnp, chain_triton, make_compact_chain
+from .tail import (
     TAIL_BODIES,
-    combine_direction,
     fused_tail_jnp,
-    fused_vg_coupled_quadratic,
-    fused_vg_quadratic,
-    fused_vg_rosenbrock,
-    iteration_tail,
+    fused_tail_triton,
     make_fused_tail,
-    make_multi_phi,
-    make_multi_phi_dphi,
-    pallas_ok,
+    tail_kernel_ok,
 )

@@ -1,50 +1,38 @@
-"""Fused batched small-matrix chain for the compact direction.
+"""The compact direction's batched small-matrix chain.
 
 The compact representation's per-iteration small-matrix work — reorder the
 physical-slot products into logical order, build the masked triangular R,
 two triangular solves, scatter the coefficients back — is arithmetically
-trivial (~m^2 flops per instance) but costs ~1.4 ms/lockstep-iteration at
-B=4096 as ~50 separate XLA ops (batch_opt_results.json onehot_chain cells:
-the cost is op granularity, not bytes — the operands total ~3 MB, micro-
-seconds at stream rate; a (m, m, B)-transposed layout recovers only 7%).
-This module fuses the WHOLE chain into one Pallas kernel over lane blocks,
+trivial (~m^3 flops per instance on kilobytes of operands).  Vmapped, XLA
+turns it into batched 10x10 products, batched triangular solves and many
+small fusions: one kernel launch each, inside the solver's while loop.
+This module runs the WHOLE chain as one Triton kernel over blocks of lanes,
 wired in through ``jax.custom_batching.custom_vmap``: the unbatched call
-(single-instance solves, the sharded single-instance path) traces the exact
-jnp formulation it always had, and under ``vmap`` the batched rule runs the
-fused kernel across all lanes at once.
-
-Key kernel trick: the logical->physical slot map is always a cyclic
-ROTATION (slots[j] = (base + j) % m with base = (n_pairs - hist_len) % m),
-so the permutation contracts against m per-lane rotation indicators instead
-of an (m, m) one-hot matrix — every value is an (8, 128) lane plane and
-every step an unrolled vector op; no gathers, no per-lane control flow.
+(single-instance solves, the sharded single-instance path) traces the
+plain jnp formulation, and under ``vmap`` the batched rule runs the kernel
+across all lanes at once in programs compiled for CUDA (the vmapped jnp
+formulation everywhere else).
 
 Reference counterpart: none — the reference's two-loop has no small-matrix
-phase; this is the price of the MXU-friendly compact formulation
-(direction.py module docstring), paid once per iteration and now at kernel
-cost instead of op-dispatch cost.
+phase; this is the price of the compact formulation (direction.py module
+docstring), paid once per iteration at one kernel launch.
 """
 from __future__ import annotations
 
-import os
 from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
-from jax import Array
+from jax import Array, lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..types import LANES
+HIGHEST = lax.Precision.HIGHEST
 
-# Module toggle for measurement/bring-up: TPU_LBFGS_CHAIN_KERNEL=0 keeps
-# every batched call on the vmapped-jnp path.
-_CHAIN_KERNEL = os.environ.get("TPU_LBFGS_CHAIN_KERNEL", "1") != "0"
-_SUB = 8          # sublanes per plane; one (8, 128) f32 vreg per value
-
-
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+# Instances per program and warps per program.  Chosen on the card
+# (PERF.md, "Kernels on the H100"); any power of two is legal.
+LANES_PER_PROGRAM = 32
+NUM_WARPS = 1
 
 
 # --- unbatched jnp implementation (the former _compact_core head) ----------------
@@ -66,16 +54,19 @@ def chain_jnp(SY_p: Array, YY_p: Array, Sg_p: Array, Yg_p: Array,
     slots, valid = _ring_logical_slots(n_pairs, m)
     if _ONEHOT:
         P = _perm_onehot(slots, m, dtype)
-        SY = P @ SY_p @ P.T
-        YY = P @ YY_p @ P.T
+        # One-hot products are exact reorderings only at full f32
+        # precision (TF32 would round the entries).
+        mat = partial(jnp.matmul, precision=HIGHEST)
+        SY = mat(mat(P, SY_p), P.T)
+        YY = mat(mat(P, YY_p), P.T)
     else:
         SY = SY_p[slots][:, slots]
         YY = YY_p[slots][:, slots]
     if skip_thr is not None:
         valid = valid & (jnp.diagonal(SY) > skip_thr)
     if _ONEHOT:
-        p1 = jnp.where(valid, P @ Sg_p, 0.0)
-        p2 = jnp.where(valid, P @ Yg_p, 0.0)
+        p1 = jnp.where(valid, mat(P, Sg_p), 0.0)
+        p2 = jnp.where(valid, mat(P, Yg_p), 0.0)
     else:
         p1 = jnp.where(valid, Sg_p[slots], 0.0)
         p2 = jnp.where(valid, Yg_p[slots], 0.0)
@@ -93,12 +84,13 @@ def chain_jnp(SY_p: Array, YY_p: Array, Sg_p: Array, Yg_p: Array,
 
     solve = jax.scipy.linalg.solve_triangular
     u = solve(R, p1, lower=False)
-    t = d_diag * u + gamma * (YYm @ u) - gamma * p2
+    t = d_diag * u + gamma * jnp.matmul(YYm, u, precision=HIGHEST) \
+        - gamma * p2
     v = solve(R.T, t, lower=True)
 
     if _ONEHOT:
-        v_phys = P.T @ jnp.where(valid, v, 0.0)
-        u_phys = P.T @ jnp.where(valid, u, 0.0)
+        v_phys = mat(P.T, jnp.where(valid, v, 0.0))
+        u_phys = mat(P.T, jnp.where(valid, u, 0.0))
     else:
         v_phys = jnp.zeros((m,), dtype).at[slots].set(
             jnp.where(valid, v, 0.0))
@@ -113,192 +105,157 @@ def chain_jnp(SY_p: Array, YY_p: Array, Sg_p: Array, Yg_p: Array,
     fallback = bad_rho | bad_gamma | (hist_len == 0) | ~small_ok
 
     gg = g_norm * g_norm
-    g_dot_d = -(gamma * gg + jnp.vdot(v, p1) - gamma * jnp.vdot(u, p2))
+    g_dot_d = -(gamma * gg + jnp.vdot(v, p1, precision=HIGHEST)
+                - gamma * jnp.vdot(u, p2, precision=HIGHEST))
     return v_phys, u_phys, gamma, g_dot_d, fallback
 
 
-# --- the fused kernel ------------------------------------------------------------
+# --- the Triton kernel -----------------------------------------------------------
 
-def _make_chain_kernel(m: int, skip_thr):
+def _chain_kernel(syp_ref, yyp_ref, sgp_ref, ygp_ref, syh_ref, yyh_ref,
+                  np_ref, gn_ref, vphys_ref, uphys_ref, gamma_ref, gdd_ref,
+                  fb_ref, *, m: int, skip_thr, lanes: int):
+    """One program solves ``lanes`` instances, one per thread lane.  The
+    logical->physical slot map of every lane is a cyclic rotation
+    (slot(l) = (base + l) % m), so reordering is a per-lane gather load and
+    the scatter back a per-lane store — no permutation products, no
+    gathers of the (m, m) blocks beyond the entries each step reads."""
     f32 = jnp.float32
+    B = np_ref.shape[0]
+    lane = pl.program_id(0) * lanes + jnp.arange(lanes, dtype=jnp.int32)
+    ok = lane < B
+    mm = lane * (m * m)
+    mv = lane * m
 
-    def kernel(syp_ref, yyp_ref, sgp_ref, ygp_ref, syh_ref, yyh_ref,
-               np_ref, gn_ref, vphys_ref, uphys_ref, gamma_ref, gdd_ref,
-               fb_ref):
-        npi = np_ref[:]                               # (SUB, 128) int32
-        hist = jnp.minimum(npi, m)
-        base = (npi - hist) % m
-        zero = jnp.zeros(npi.shape, f32)
-        one = jnp.ones(npi.shape, f32)
-        # rotation indicators: ind[b] = base == b.  SELECT-chains (not
-        # multiply-accumulate): 0 * NaN = NaN would leak a poisoned entry
-        # across its whole rotation orbit, diverging from the gather
-        # semantics this kernel replaces.
-        ind = [(base == b) for b in range(m)]
-        newest = (npi - 1) % m
-        ind2 = [(newest == b) for b in range(m)]
+    def ld(ref, off):
+        return plgpu.load(ref.at[off], mask=ok, other=0.0)
 
-        def rot_select(inds, vals):
-            acc = vals[0]
-            for b in range(1, m):
-                acc = jnp.where(inds[b], vals[b], acc)
-            return acc
+    npi = plgpu.load(np_ref.at[lane], mask=ok, other=0)
+    mi = jnp.int32(m)
+    hist = jnp.minimum(npi, mi)
+    base = lax.rem(npi - hist, mi)
+    slot = [lax.rem(base + jnp.int32(l), mi) for l in range(m)]
 
-        def rot_mat(ref, l, q):
-            # ref[(base+l)%m, (base+q)%m]
-            return rot_select(ind, [ref[(b + l) % m, (b + q) % m]
-                                    for b in range(m)])
+    def sy_at(l, q):                      # SY in logical order
+        return ld(syp_ref, mm + slot[l] * m + slot[q])
 
-        def rot_vec(ref, l):
-            return rot_select(ind, [ref[(b + l) % m] for b in range(m)])
+    def yy_at(l, q):
+        return ld(yyp_ref, mm + slot[l] * m + slot[q])
 
-        SYL = [[rot_mat(syp_ref, l, q) for q in range(m)] for l in range(m)]
-        YYL = [[rot_mat(yyp_ref, l, q) for q in range(m)] for l in range(m)]
-        diag = [SYL[l][l] for l in range(m)]
+    diag = [sy_at(l, l) for l in range(m)]
+    valid = [jnp.int32(l) < hist for l in range(m)]
+    if skip_thr is not None:
+        valid = [valid[l] & (diag[l] > skip_thr) for l in range(m)]
+    zero = jnp.zeros((lanes,), f32)
+    one = jnp.ones((lanes,), f32)
+    p1 = [jnp.where(valid[l], ld(sgp_ref, mv + slot[l]), zero)
+          for l in range(m)]
+    p2 = [jnp.where(valid[l], ld(ygp_ref, mv + slot[l]), zero)
+          for l in range(m)]
+    pivot = [jnp.where(valid[l], diag[l], one) for l in range(m)]
 
-        valid = [(jnp.full(npi.shape, l, npi.dtype) < hist) for l in range(m)]
-        if skip_thr is not None:
-            thr = jnp.float32(skip_thr)
-            valid = [valid[l] & (diag[l] > thr) for l in range(m)]
+    def r_at(l, q):                       # R upper-triangular, q > l
+        return jnp.where(valid[l] & valid[q], sy_at(l, q), zero)
 
-        p1 = [jnp.where(valid[l], rot_vec(sgp_ref, l), zero)
-              for l in range(m)]
-        p2 = [jnp.where(valid[l], rot_vec(ygp_ref, l), zero)
-              for l in range(m)]
-        d_diag = [jnp.where(valid[l], diag[l], one) for l in range(m)]
+    # gamma from the newest pair's exact scalars
+    newest = lax.rem(npi + jnp.int32(m - 1), mi)
+    gamma = ld(syh_ref, mv + newest) / ld(yyh_ref, mv + newest)
 
-        # R upper-triangular with identity on invalid rows/cols
-        def R(l, q):
-            if q < l:
-                return zero
-            if q == l:
-                return jnp.where(valid[l], diag[l], one)
-            return jnp.where(valid[l] & valid[q], SYL[l][q], zero)
+    # back substitution: R u = p1
+    u = [None] * m
+    for i in range(m - 1, -1, -1):
+        acc = p1[i]
+        for j in range(i + 1, m):
+            acc = acc - r_at(i, j) * u[j]
+        u[i] = acc / pivot[i]
+    # t = D u + gamma * (YYm @ u) - gamma * p2
+    t = [None] * m
+    for i in range(m):
+        acc = zero
+        for q in range(m):
+            acc = acc + jnp.where(valid[i] & valid[q], yy_at(i, q),
+                                  zero) * u[q]
+        t[i] = pivot[i] * u[i] + gamma * acc - gamma * p2[i]
+    # forward substitution: R^T v = t
+    v = [None] * m
+    for i in range(m):
+        acc = t[i]
+        for j in range(i):
+            acc = acc - r_at(j, i) * v[j]
+        v[i] = acc / pivot[i]
 
-        # gamma from the newest pair's exact scalars
-        gamma = rot_select(ind2, [syh_ref[b] for b in range(m)]) \
-            / rot_select(ind2, [yyh_ref[b] for b in range(m)])
+    # scatter back: logical l lives in physical slot(l)
+    small_ok = ok
+    bad_rho = jnp.zeros((lanes,), jnp.bool_)
+    for l in range(m):
+        vz = jnp.where(valid[l], v[l], zero)
+        uz = jnp.where(valid[l], u[l], zero)
+        plgpu.store(vphys_ref.at[mv + slot[l]], vz, mask=ok)
+        plgpu.store(uphys_ref.at[mv + slot[l]], uz, mask=ok)
+        small_ok = small_ok & jnp.isfinite(vz) & jnp.isfinite(uz)
+        bad_rho = bad_rho | (valid[l] & ~jnp.isfinite(1.0 / pivot[l]))
+    bad_gamma = (gamma <= 0) | ~jnp.isfinite(gamma)
+    fb = bad_rho | bad_gamma | (hist == 0) | ~small_ok
 
-        # back substitution: R u = p1
-        u = [None] * m
-        for i in range(m - 1, -1, -1):
-            acc = p1[i]
-            for j in range(i + 1, m):
-                acc = acc - R(i, j) * u[j]
-            u[i] = acc / R(i, i)
-        # t = D u + gamma * (YYm @ u) - gamma * p2
-        t = [None] * m
-        for i in range(m):
-            acc = zero
-            for q in range(m):
-                acc = acc + jnp.where(valid[i] & valid[q], YYL[i][q],
-                                      zero) * u[q]
-            t[i] = d_diag[i] * u[i] + gamma * acc - gamma * p2[i]
-        # forward substitution: R^T v = t
-        v = [None] * m
-        for i in range(m):
-            acc = t[i]
-            for j in range(i):
-                acc = acc - R(j, i) * v[j]
-            v[i] = acc / R(i, i)
-
-        vz = [jnp.where(valid[l], v[l], zero) for l in range(m)]
-        uz = [jnp.where(valid[l], u[l], zero) for l in range(m)]
-        # scatter back: phys p holds logical (p - base) % m
-        small_ok = jnp.ones(npi.shape, jnp.bool_)
-        for p in range(m):
-            acc_v = rot_select(ind, [vz[(p - b) % m] for b in range(m)])
-            acc_u = rot_select(ind, [uz[(p - b) % m] for b in range(m)])
-            vphys_ref[p] = acc_v
-            uphys_ref[p] = acc_u
-            small_ok = small_ok & jnp.isfinite(acc_v) & jnp.isfinite(acc_u)
-
-        bad_gamma = (gamma <= 0) | ~jnp.isfinite(gamma)
-        bad_rho = jnp.zeros(npi.shape, jnp.bool_)
-        for l in range(m):
-            bad_rho = bad_rho | (valid[l] & ~jnp.isfinite(
-                1.0 / jnp.where(valid[l], diag[l], one)))
-        fb = (bad_rho | bad_gamma | (hist == 0) | ~small_ok).astype(f32)
-
-        gg = gn_ref[:] * gn_ref[:]
-        vdp1 = v[0] * p1[0]
-        udp2 = u[0] * p2[0]
-        for l in range(1, m):
-            vdp1 = vdp1 + v[l] * p1[l]
-            udp2 = udp2 + u[l] * p2[l]
-        gamma_ref[:] = gamma
-        gdd_ref[:] = -(gamma * gg + vdp1 - gamma * udp2)
-        fb_ref[:] = fb
-
-    return kernel
+    gn = ld(gn_ref, lane)
+    vdp1 = v[0] * p1[0]
+    udp2 = u[0] * p2[0]
+    for l in range(1, m):
+        vdp1 = vdp1 + v[l] * p1[l]
+        udp2 = udp2 + u[l] * p2[l]
+    plgpu.store(gamma_ref.at[lane], gamma, mask=ok)
+    plgpu.store(gdd_ref.at[lane], -(gamma * (gn * gn) + vdp1 - gamma * udp2),
+                mask=ok)
+    plgpu.store(fb_ref.at[lane], fb.astype(jnp.int32), mask=ok)
 
 
-def _chain_pallas(SY_p, YY_p, Sg_p, Yg_p, sy_hist, yy_hist, n_pairs, g_norm,
-                  m: int, skip_thr):
-    """Batched chain over lane blocks.  Inputs: (B, m, m) / (B, m) / (B,)
-    f32 with B % (8*128) == 0.  Returns batched (B, ...) outputs."""
+def chain_triton(SY_p, YY_p, Sg_p, Yg_p, sy_hist, yy_hist, n_pairs, g_norm,
+                 m: int, skip_thr, lanes: int = LANES_PER_PROGRAM,
+                 num_warps: int = NUM_WARPS, interpret: bool = False):
+    """Batched chain, one Triton program per ``lanes`` instances.  Inputs
+    (B, m, m) / (B, m) / (B,) f32 in their natural layout (no transposes);
+    any B.  Returns batched (B, ...) outputs like ``jax.vmap(chain_jnp)``.
+    ``interpret`` runs the Pallas interpreter (tests only)."""
     B = SY_p.shape[0]
-    rows = B // LANES                      # total sublane rows
     f32 = jnp.float32
-
-    def mat_planes(x):                     # (B, m, m) -> (m, m, rows, 128)
-        return jnp.transpose(x, (1, 2, 0)).reshape(m, m, rows, LANES)
-
-    def vec_planes(x):                     # (B, m) -> (m, rows, 128)
-        return jnp.transpose(x, (1, 0)).reshape(m, rows, LANES)
-
-    def lane_planes(x):                    # (B,) -> (rows, 128)
-        return x.reshape(rows, LANES)
-
-    grid = rows // _SUB
-    mm = pl.BlockSpec((m, m, _SUB, LANES), lambda j: (0, 0, j, 0),
-                      memory_space=pltpu.VMEM)
-    mv = pl.BlockSpec((m, _SUB, LANES), lambda j: (0, j, 0),
-                      memory_space=pltpu.VMEM)
-    ln = pl.BlockSpec((_SUB, LANES), lambda j: (j, 0),
-                      memory_space=pltpu.VMEM)
-
+    flat = lambda a: a.astype(f32).reshape(-1)
     outs = pl.pallas_call(
-        _make_chain_kernel(m, skip_thr),
-        grid=(grid,),
-        in_specs=[mm, mm, mv, mv, mv, mv, ln, ln],
-        out_specs=(mv, mv, ln, ln, ln),
-        out_shape=(
-            jax.ShapeDtypeStruct((m, rows, LANES), f32),
-            jax.ShapeDtypeStruct((m, rows, LANES), f32),
-            jax.ShapeDtypeStruct((rows, LANES), f32),
-            jax.ShapeDtypeStruct((rows, LANES), f32),
-            jax.ShapeDtypeStruct((rows, LANES), f32),
-        ),
-        interpret=_interpret(),
-    )(mat_planes(SY_p.astype(f32)), mat_planes(YY_p.astype(f32)),
-      vec_planes(Sg_p.astype(f32)), vec_planes(Yg_p.astype(f32)),
-      vec_planes(sy_hist.astype(f32)), vec_planes(yy_hist.astype(f32)),
-      lane_planes(n_pairs.astype(jnp.int32)),
-      lane_planes(g_norm.astype(f32)))
-
-    v_pl, u_pl, gamma_pl, gdd_pl, fb_pl = outs
-    unvec = lambda x: jnp.transpose(x.reshape(m, B), (1, 0))   # -> (B, m)
-    unlane = lambda x: x.reshape(B)
-    return (unvec(v_pl), unvec(u_pl), unlane(gamma_pl), unlane(gdd_pl),
-            unlane(fb_pl) > 0.5)
+        partial(_chain_kernel, m=m, skip_thr=skip_thr,
+                          lanes=lanes),
+        out_shape=(jax.ShapeDtypeStruct((B * m,), f32),
+                   jax.ShapeDtypeStruct((B * m,), f32),
+                   jax.ShapeDtypeStruct((B,), f32),
+                   jax.ShapeDtypeStruct((B,), f32),
+                   jax.ShapeDtypeStruct((B,), jnp.int32)),
+        grid=(pl.cdiv(B, lanes),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="compact_chain",
+    )(flat(SY_p), flat(YY_p), flat(Sg_p), flat(Yg_p), flat(sy_hist),
+      flat(yy_hist), n_pairs.astype(jnp.int32), g_norm.astype(f32))
+    v, u, gamma, gdd, fb = outs
+    return v.reshape(B, m), u.reshape(B, m), gamma, gdd, fb != 0
 
 
 @lru_cache(maxsize=32)
-def make_compact_chain(m: int, skip_thr):
+def make_compact_chain(m: int, skip_thr, interpret: bool = False):
     """The compact direction's small-matrix chain as a custom-vmapped
     callable: unbatched calls trace chain_jnp verbatim; a vmapped call with
-    f32 operands and an eligible batch size runs the fused Pallas kernel
-    (other dtypes/shapes fall back to the vmapped jnp formulation).
+    f32 operands runs the Triton kernel in programs compiled for CUDA and
+    the vmapped jnp formulation elsewhere (chosen at lowering by
+    ``lax.platform_dependent``).  Other dtypes and nested batches always
+    take the vmapped jnp formulation.  ``interpret=True`` runs the kernel in
+    the Pallas interpreter on any platform (tests).
 
-    Cached on (m, skip_thr) so repeated jits see the same callable object
-    (compilation-cache friendliness, as with the other kernel factories).
+    Cached on its arguments so repeated jits see the same callable object.
 
     Caveat (2-D mesh): under ``vmap(..., spmd_axis_name=...)`` with the
     batch axis sharded, the opaque pallas_call forces the small operands to
     replicate around it — correct, and cheap for these KB-scale arrays, but
     it is the single-device kernel running per replica, not a partitioned
-    kernel (the dryrun exercises this path end-to-end).
+    kernel.
     """
     from jax.custom_batching import custom_vmap
 
@@ -315,14 +272,14 @@ def make_compact_chain(m: int, skip_thr):
                 jnp.broadcast_to(a, (axis_size,) + jnp.shape(a))
                 for a, b in zip(args, jax.tree.leaves(in_batched))]
         SY_p = args[0]
-        eligible = (_CHAIN_KERNEL
-                    and SY_p.ndim == 3                 # one batch level
-                    and SY_p.dtype == jnp.float32
-                    and axis_size % (_SUB * LANES) == 0)
-        if eligible:
-            outs = _chain_pallas(*args, m=m, skip_thr=skip_thr)
+        plain = jax.vmap(impl)
+        if SY_p.ndim != 3 or SY_p.dtype != jnp.float32:
+            outs = plain(*args)
         else:
-            outs = jax.vmap(impl)(*args)
+            kernel = partial(chain_triton, m=m, skip_thr=skip_thr,
+                             interpret=interpret)
+            outs = kernel(*args) if interpret else \
+                lax.platform_dependent(*args, cuda=kernel, default=plain)
         return outs, (True,) * 5
 
     return chain

@@ -24,21 +24,13 @@ import jax.numpy as jnp
 from jax import Array
 
 
-def _copysign(a: Array, b: Array) -> Array:
-    """Sign transfer without jnp.copysign: copysign lowers to a 64-bit bitcast
-    that TPU's x64-emulation pass cannot rewrite.  Differs from IEEE copysign
-    only for b == -0.0 (returns +|a|), which in our callers implies a
-    degenerate zero-width interval whose result is NaN/rejected anyway."""
-    return jnp.where(b < 0, -jnp.abs(a), jnp.abs(a))
-
-
 def cubic_interpolate(a0: Array, a1: Array, p0: Array, dp0: Array,
                       p1: Array, dp1: Array) -> Array:
     """The reference's cubic through (a0,p0,dp0), (a1,p1,dp1); may return NaN.
     NOTE: selects the cubic's MAXIMIZER root (fidelity trap #4) — kept
     verbatim for trajectory parity; see cubic_interpolate_fixed."""
     d1 = dp0 + dp1 - 3.0 * (p1 - p0) / (a1 - a0)
-    d2 = _copysign(jnp.sqrt(d1 * d1 - dp0 * dp1), a1 - a0)
+    d2 = jnp.copysign(jnp.sqrt(d1 * d1 - dp0 * dp1), a1 - a0)
     return a0 + (a1 - a0) * (dp0 + d2 - d1) / (dp0 - dp1 + 2.0 * d2)
 
 
@@ -47,7 +39,7 @@ def cubic_interpolate_fixed(a0: Array, a1: Array, p0: Array, dp0: Array,
     """Textbook cubic MINIMIZER (Nocedal & Wright eq. 3.59, anchored at a1);
     may return NaN on a negative discriminant, like the reference variant."""
     d1 = dp0 + dp1 - 3.0 * (p1 - p0) / (a1 - a0)
-    d2 = _copysign(jnp.sqrt(d1 * d1 - dp0 * dp1), a1 - a0)
+    d2 = jnp.copysign(jnp.sqrt(d1 * d1 - dp0 * dp1), a1 - a0)
     return a1 - (a1 - a0) * (dp1 + d2 - d1) / (dp1 - dp0 + 2.0 * d2)
 
 
@@ -85,7 +77,7 @@ def safe_cubic_interpolate(a0: Array, a1: Array, p0: Array, dp0: Array,
 
     d1 = dp0 + dp1 - 3.0 * (p1 - p0) / span
     disc = d1 * d1 - dp0 * dp1
-    d2 = _copysign(jnp.sqrt(jnp.maximum(disc, 0.0)), span)
+    d2 = jnp.copysign(jnp.sqrt(jnp.maximum(disc, 0.0)), span)
     if fixed:
         denom = dp1 - dp0 + 2.0 * d2
         result = a1 - span * (dp1 + d2 - d1) / denom

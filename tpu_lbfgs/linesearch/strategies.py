@@ -16,7 +16,7 @@ items 2, 13-17):
   wolfe_interpolation      line_search.cpp:125-189 / parallel :298-369 and the
                            GPU-inlined zoom in L-BFGS-Wolfe.cu:260-349
 
-TPU-native restructuring: every trial evaluates f (and grad, for Wolfe
+Device-side restructuring: every trial evaluates f (and grad, for Wolfe
 variants) *on device* inside the jitted loop — the reference round-trips
 x_trial to the host for every single evaluation (L-BFGS-Backtracking.cu:322-327).
 Early `continue`/`return` become carry flags; accepted lanes freeze their carry
@@ -156,9 +156,7 @@ def backtracking_speculative(cfg: LBFGSConfig, phi: PhiFn,
     (L-BFGS-Backtracking.cu:314-341).  Here each round evaluates the whole
     ladder alpha_base * shrink^[0..K) with ONE vector phi call — under
     ls_eval="polynomial" that is K Horner evaluations; under "direct" it is
-    one batched objective pass over (x, d) (a fused Pallas multi-trial
-    kernel for suite problems), which on a memory-bound TPU costs about the
-    same as a single trial.
+    one batched (vmapped) objective evaluation over (x, d).
 
     The returned alpha is exactly sequential backtracking's: the first
     ladder index that passes Armijo wins; the sequential loop's underflow

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -36,12 +37,16 @@ class QuadraticFixture:
     def problem(self, dtype=jnp.float64) -> Problem:
         A = jnp.asarray(self.A, dtype)
         b = jnp.asarray(self.b, dtype)
+        # Full precision: an f32 product could otherwise run in TF32.
+        hi = jax.lax.Precision.HIGHEST
 
         def f(x):
-            return 0.5 * jnp.vdot(x, A @ x) - jnp.vdot(b, x)
+            return 0.5 * jnp.vdot(x, jnp.matmul(A, x, precision=hi),
+                                  precision=hi) \
+                - jnp.vdot(b, x, precision=hi)
 
         def grad(x):
-            return A @ x - b
+            return jnp.matmul(A, x, precision=hi) - b
 
         return Problem(
             name=f"spd_quadratic_d{self.dim}_s{self.seed}", f=f, grad=grad,

@@ -1,6 +1,6 @@
 """Benchmark objective-function suite.
 
-TPU-native re-implementation of the reference problem suite:
+Re-implementation of the reference problem suite:
   - quadratic        sum (x_i - 1)^2            (parallel-implementation/functions.cpp:6-24)
   - rosenbrock       coupled chained Rosenbrock (functions.cpp:26-49,
                       sequential-implementation/benchmark.cpp:58-81)
@@ -13,9 +13,9 @@ ships analytic gradients only; its GPU Rosenbrock gradient kernel in
 benchmark.cu:30-48 is mathematically wrong and is deliberately NOT replicated —
 SURVEY.md §2 item 20).
 
-All functions are written with vectorized jnp ops (VPU-friendly, no Python
-loops over coordinates), are dtype-polymorphic, and reduce with a single
-``jnp.sum`` so XLA emits one fused reduction per evaluation.
+All functions are written with vectorized jnp ops (no Python loops over
+coordinates), are dtype-polymorphic, and reduce with a single ``jnp.sum``
+so XLA emits one fused reduction per evaluation.
 """
 from __future__ import annotations
 
@@ -97,6 +97,42 @@ def coupled_quadratic_grad(x: Array, coeff: float = COUPLED_COEFFICIENT) -> Arra
     g = g.at[:-1].add((coeff / 10.0) * x[1:])
     g = g.at[1:].add((coeff / 10.0) * x[:-1])
     return g
+
+
+# --- fused value-and-grad forms -------------------------------------------------
+# f and the analytic gradient from shared intermediates, which XLA fuses
+# into one pass over x.
+
+def quadratic_value_and_grad(x: Array):
+    r = x - 1.0
+    return jnp.sum(r * r), 2.0 * r
+
+
+def rosenbrock_value_and_grad(x: Array):
+    xi, xn = x[:-1], x[1:]
+    t1 = xn - xi * xi
+    t2 = 1.0 - xi
+    f = jnp.sum(100.0 * t1 * t1 + t2 * t2)
+    g = jnp.zeros_like(x)
+    g = g.at[:-1].add(2.0 * (xi - 1.0) - 400.0 * xi * t1)
+    g = g.at[1:].add(200.0 * t1)
+    return f, g
+
+
+def coupled_quadratic_value_and_grad(x: Array,
+                                     coeff: float = COUPLED_COEFFICIENT):
+    f = coeff * jnp.sum(x * x) + (coeff / 10.0) * jnp.sum(x[:-1] * x[1:])
+    g = 2.0 * coeff * x
+    g = g.at[:-1].add((coeff / 10.0) * x[1:])
+    g = g.at[1:].add((coeff / 10.0) * x[:-1])
+    return f, g
+
+
+FUSED_VG = {
+    "quadratic": quadratic_value_and_grad,
+    "rosenbrock": rosenbrock_value_and_grad,
+    "coupled_quadratic": coupled_quadratic_value_and_grad,
+}
 
 
 # --- directional polynomials -----------------------------------------------------
@@ -203,86 +239,80 @@ def register_problem(problem: Problem) -> None:
     _PROBLEMS[problem.name] = problem
 
 
-def fused_value_and_grad(name: str, use_pallas: bool = True):
-    """Objective + analytic gradient in one HBM pass via the Pallas kernels
-    (kernels/pallas_ops.py), with identical-semantics jnp fallback.  Pass the
-    result as ``value_and_grad=`` to minimize()/bench for the fastest path."""
-    from ..kernels import FUSED_VG
-
-    if name not in FUSED_VG:
-        p = get_problem(name)
-        return p.value_and_grad
-    fn = FUSED_VG[name]
-    return lambda x: fn(x, use_pallas=use_pallas)
+def fused_value_and_grad(name: str):
+    """Objective + analytic gradient from shared intermediates (one fused
+    pass over x) for the suite problems that have one, else the problem's
+    (f, grad) pair.  Pass as ``value_and_grad=`` to minimize()."""
+    if name in FUSED_VG:
+        return FUSED_VG[name]
+    return get_problem(name).value_and_grad
 
 
-def multi_phi_for(name: str, use_pallas: bool = True):
+def multi_phi_for(name: str):
     """Batched line-search trial evaluator phi_batch(x, d, alphas) -> (K,):
-    all K trial objectives in one fused pass over (x, d).  Pass as
-    ``phi_batch=`` to minimize()/solve for line_search="backtracking_speculative"
-    under ls_eval="direct"."""
-    from ..kernels import make_multi_phi
+    the objective at all K trial points, vmapped.  Pass as ``phi_batch=``
+    to minimize()/solve for line_search="backtracking_speculative" under
+    ls_eval="direct"."""
+    f = get_problem(name).f
 
-    return make_multi_phi(name, get_problem(name).f, use_pallas=use_pallas)
+    def phi_batch(x, d, alphas):
+        return jax.vmap(lambda a: f(x + a * d))(alphas)
+
+    return phi_batch
 
 
-def multi_phi_dphi_for(name: str, use_pallas: bool = True):
+def multi_phi_dphi_for(name: str):
     """Batched (phi, phi') trial evaluator phi_dphi_batch(x, d, alphas) ->
-    ((K,), (K,)): all K trial objectives AND directional derivatives in one
-    fused pass over (x, d).  Pass as ``phi_dphi_batch=`` to minimize()/solve
-    for the speculative Wolfe searches
-    (line_search="wolfe_interpolation_speculative" /
-    "backtracking_wolfe_speculative") under ls_eval="direct"."""
-    from ..kernels import make_multi_phi_dphi
+    ((K,), (K,)): objective and directional derivative at all K trial
+    points, vmapped.  Pass as ``phi_dphi_batch=`` to minimize()/solve for
+    the speculative Wolfe searches under ls_eval="direct"."""
+    vg = fused_value_and_grad(name)
 
-    return make_multi_phi_dphi(name, get_problem(name).value_and_grad,
-                               use_pallas=use_pallas)
+    def phi_dphi_batch(x, d, alphas):
+        def one(a):
+            f_new, g_new = vg(x + a * d)
+            return f_new, jnp.vdot(g_new, d)
+
+        return jax.vmap(one)(alphas)
+
+    return phi_dphi_batch
 
 
 def auto_with_matvec(m: int, d: int, history_dtype=None,
                      batch: int = 1) -> bool:
-    """Whether the fused tail should compute the history matvecs in-kernel.
-
-    Measured rule (giant_sweep_results.jsonl, d=2^26): in-kernel matvecs win
-    exactly when the history STREAMS from HBM (19.2 vs 20.2 ms/iter bf16,
-    28.7 vs 29.1 f32); when the ring is VMEM-resident, XLA's dot_general
-    reads it for free and wins (PERFORMANCE.md "VMEM residency").  Uses the
-    RESOLVED history dtype — an auto-selected bf16 ring can itself be
-    resident.  ``batch``: per-device lane count; residency keys on the total
-    footprint (see roofline.history_streams)."""
-    from ..utils.roofline import history_streams
-
-    # jnp.dtype normalizes both spellings ("bfloat16" and jnp.bfloat16 — the
-    # string compare alone mis-sized the class form as 4 bytes).  None means
-    # history in the input dtype; the Pallas tail is f32-only, so 4 bytes.
-    itemsize = 4 if history_dtype is None else jnp.dtype(history_dtype).itemsize
-    return history_streams(m, d, itemsize, batch=batch)
+    """Resolve with_matvec="auto": whether the fused tail should also
+    compute the history matvecs.  False: no size rule for computing them
+    in the tail has been measured on the GPU yet (ROADMAP S5).  ``m``,
+    ``d``, the resolved ``history_dtype`` and ``batch`` (per-device lane
+    count) are the inputs such a rule keys on; callers pass them
+    already."""
+    return False
 
 
-def fused_tail_for(name: str, with_matvec="auto",
-                   use_pallas: bool = True, m: int = 10,
+def fused_tail_for(name: str, with_matvec=False, m: int = 10,
                    d: Optional[int] = None, history_dtype=None,
-                   batch: int = 1, accurate_dots: bool = False):
+                   batch: int = 1, accurate_dots: bool = False,
+                   interpret: bool = False):
     """The fused post-line-search tail (trial point + f/grad + pair update +
-    scalar reductions + history matvecs in ONE HBM stream) for a suite
-    problem; pass as ``fused_tail=`` to minimize()/solve for the fastest
-    path.  Falls back to the identical-semantics jnp composition for
-    problems without a Pallas body or ineligible shapes/dtypes.
+    scalar reductions + optional history matvecs in ONE pass) for a suite
+    problem; pass as ``fused_tail=`` to minimize()/solve.  A Triton kernel
+    in programs compiled for CUDA, its plain-XLA twin elsewhere and for
+    problems without a kernel body (kernels.tail).
 
-    with_matvec="auto" applies the measured residency rule
-    (auto_with_matvec) — requires ``d``; without it the safe resident-size
-    default (False) is used.
-
+    with_matvec: also compute S@y_new and Y@y_new in the same pass (read by
+    direction="compact_incremental" only); "auto" resolves through
+    auto_with_matvec, which needs ``m`` and ``d``.
     accurate_dots: build the Neumaier-compensated variant — REQUIRED when
-    pairing with cfg.accurate_dots (the solver rejects a plain tail)."""
+    pairing with cfg.accurate_dots (the solver rejects a plain tail).
+    interpret: run the Triton kernel in the Pallas interpreter (tests)."""
     from ..kernels import make_fused_tail
 
     if with_matvec == "auto":
-        with_matvec = (auto_with_matvec(m, d, history_dtype, batch=batch)
-                       if d is not None else False)
-    return make_fused_tail(name, fused_value_and_grad(name, use_pallas),
-                           with_matvec=with_matvec, use_pallas=use_pallas,
-                           accurate_dots=accurate_dots)
+        with_matvec = d is not None and auto_with_matvec(m, d, history_dtype,
+                                                         batch=batch)
+    return make_fused_tail(name, fused_value_and_grad(name),
+                           with_matvec=with_matvec,
+                           accurate_dots=accurate_dots, interpret=interpret)
 
 
 def reference_x0(d: int, seed: int, low: float = -1000.0, high: float = 1000.0,

@@ -54,7 +54,7 @@ def minimize(fun: Callable, x0, args=(), method: str = "tpu-lbfgs",
              jac: Optional[Callable] = None, tol: Optional[float] = None,
              options: Optional[dict] = None,
              config: Optional[LBFGSConfig] = None) -> OptimizeResult:
-    """SciPy-shaped wrapper around the TPU solver.
+    """SciPy-shaped wrapper around the on-device solver.
 
     options: maxiter (default 1000), gtol (||g|| tolerance, default 1e-5),
     maxcor (history depth m, default 10), linesearch (any

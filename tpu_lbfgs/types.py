@@ -2,8 +2,8 @@
 
 The reference keeps solver state in loose locals plus two ``std::deque``s of
 vectors (lbfgs.cpp:32) on CPU, or ``m`` separately-allocated device buffers
-indexed ``k % m`` on GPU (L-BFGS.cu:160-172,216-235).  The TPU-native design
-uses one fixed-shape pytree: the history is a dense ``(m, d)`` ring buffer so
+indexed ``k % m`` on GPU (L-BFGS.cu:160-172,216-235).  This design uses one
+fixed-shape pytree: the history is a dense ``(m, d)`` ring buffer so
 every iteration is a statically-shaped XLA program (no dynamic shapes, no
 reallocation), sharding annotations apply uniformly, and the whole state can be
 donated between iterations.
@@ -15,20 +15,20 @@ from typing import NamedTuple, Optional, Tuple
 import jax.numpy as jnp
 from jax import Array
 
-#: TPU vector-register lane width; the last dim of tiled arrays.
+#: Minor dimension of the history ring's (R, LANES) per-pair rows.
 LANES = 128
 
 
 def hist_block(d: int) -> Tuple[int, int]:
     """(R, L) with R*L = d: the per-pair storage shape of the history ring.
 
-    History rows are stored as (R, 128) blocks rather than flat (d,) slices
-    of an (m, d) matrix because TPU HBM tiling pads the second-to-minor dim
-    to the sublane count (8 for f32, 16 for bf16): an (m=10, d) array
-    physically occupies 16 sublanes — 60% wasted bytes on EVERY history
-    stream, measured as ~80 us/iteration at d=2^20.  (m, R, 128) tiles the
-    (R, 128) trailing dims exactly; the leading m is just an array of tiles.
-    Falls back to (1, d) when d is not lane-aligned.
+    The ring is an (m, R, 128) array: each pair's row is one contiguous
+    block of d elements, so a row write and every per-row contraction
+    stream contiguous memory, and d-axis sharding splits R.  The layout is
+    a leftover of the design's first target, whose memory tiling padded an
+    (m, d) matrix; on the GPU it is contiguous either way and costs
+    nothing (ROADMAP S5 queues the question of keeping it).  Falls back to
+    (1, d) when d is not a multiple of 128.
     """
     if d % LANES == 0 and d >= LANES:
         return d // LANES, LANES

@@ -1,7 +1,7 @@
 """Per-iteration memory-traffic model and roofline accounting.
 
 The whole solver is memory-bound (SURVEY.md §5 tracing row: "roofline
-accounting — bytes moved per two-loop step vs HBM BW").  This model counts
+accounting — bytes moved per two-loop step vs memory bandwidth").  This model counts
 the HBM bytes each configuration streams per iteration so benchmarks can
 report achieved fraction of roofline, and so regressions in pass count show
 up as model-vs-measured gaps.
@@ -29,13 +29,22 @@ from dataclasses import dataclass
 
 from ..config import LBFGSConfig
 
-# Published peak HBM bandwidth per chip, GB/s.
+# Published peak device-memory bandwidth, GB/s, keyed by JAX's
+# ``device_kind``.  Source: NVIDIA H100 Tensor Core GPU data sheet, SXM5
+# part: 80 GB HBM3 at 3.35 TB/s (rated at the 700 W power limit).
 HBM_BW_GBPS = {
-    "v5e": 819.0,
-    "v5p": 2765.0,
-    "v4": 1228.0,
-    "v6e": 1640.0,
+    "NVIDIA H100 80GB HBM3": 3350.0,
 }
+
+
+def peak_bw_gbps(device_kind: str) -> float:
+    """Published peak memory bandwidth of a device, GB/s.  A device that is
+    not in the table is an error, not a default."""
+    try:
+        return HBM_BW_GBPS[device_kind]
+    except KeyError:
+        raise ValueError(f"no published peak bandwidth for device kind "
+                         f"{device_kind!r}; known: {sorted(HBM_BW_GBPS)}")
 
 
 @dataclass
@@ -68,52 +77,29 @@ class TrafficModel:
         """Total HBM bytes per lockstep iteration (all ``batch`` lanes)."""
         return self.passes_total * self.d * self.dtype_bytes * self.batch
 
-    def peak_iters_per_s(self, chip: str = "v5e") -> float:
+    def peak_iters_per_s(self, device_kind: str) -> float:
         """Roofline-bound lockstep iterations/s (one iteration advances
-        every lane once)."""
-        return HBM_BW_GBPS[chip] * 1e9 / self.bytes_per_iter
+        every lane once) at the device's published peak bandwidth."""
+        return peak_bw_gbps(device_kind) * 1e9 / self.bytes_per_iter
 
-    def peak_instance_iters_per_s(self, chip: str = "v5e") -> float:
+    def peak_instance_iters_per_s(self, device_kind: str) -> float:
         """Roofline-bound instance-iterations/s = batch x lockstep rate —
         the unit the batch benchmarks report."""
-        return self.peak_iters_per_s(chip) * self.batch
+        return self.peak_iters_per_s(device_kind) * self.batch
 
     def roofline_fraction(self, measured_iters_per_s: float,
-                          chip: str = "v5e") -> float:
+                          device_kind: str) -> float:
         """measured_iters_per_s in LOCKSTEP iterations/s (for batch cells,
         instance-it/s divided by batch — or use
         measured_instance_rate / peak_instance_iters_per_s, identical)."""
-        return measured_iters_per_s / self.peak_iters_per_s(chip)
-
-
-# Conservative bound on the history footprint XLA will keep VMEM-resident
-# across the solver while_loop on current TPUs (measured on v5e: an 80 MB
-# f32 m=10 history stays resident; a 160 MB m=20 one streams from HBM).
-VMEM_RESIDENT_BYTES = 100e6
-
-
-def history_streams(m: int, d: int, itemsize: float = 4,
-                    batch: int = 1) -> bool:
-    """True when the history ring exceeds the VMEM-resident bound and must
-    stream from HBM.  THE single source of the measured residency rule —
-    history_dtype="auto" (core.solver.resolve_history_dtype),
-    with_matvec="auto" (problems.suite.auto_with_matvec) and the traffic
-    model below all key on this predicate.
-
-    ``batch``: number of instances live on the device at once (``vmap``
-    lane count; on a 2-D (b, d) mesh, the PER-DEVICE lane count).  Residency
-    is a property of the TOTAL live footprint: a B=4096 batch of d=1024
-    instances carries an 80 KB ring per instance but a 335 MB ring in
-    aggregate — fully streaming — which the per-instance size alone
-    mispredicts as resident (round-4 verdict weak #2)."""
-    return batch * 2 * m * d * itemsize >= VMEM_RESIDENT_BYTES
+        return measured_iters_per_s / self.peak_iters_per_s(device_kind)
 
 
 def traffic_model(cfg: LBFGSConfig, d: int, dtype_bytes: int = 4,
                   avg_ls_trials: float = 2.2,
                   obj_passes: float = 1.0,
                   fused_tail: bool = None,
-                  hist_resident: bool = None,
+                  hist_resident: bool = False,
                   batch: int = 1) -> TrafficModel:
     """Estimate HBM passes per iteration for a configuration.
 
@@ -121,42 +107,30 @@ def traffic_model(cfg: LBFGSConfig, d: int, dtype_bytes: int = 4,
     (n_fev / iterations from a run); obj_passes: passes one objective
     evaluation costs beyond reading its input (1 for the suite's fused or
     elementwise-chain objectives); fused_tail: whether the single-stream
-    tail kernel is active (defaults to cfg.use_pallas).
+    fused tail is active (defaults to cfg.use_pallas).
 
-    hist_resident: when the whole history (all ``batch`` lanes' rings) fits
-    in VMEM, XLA keeps it resident across the while_loop and history reads
-    cost NO HBM traffic (see PERFORMANCE.md "VMEM residency"); defaults to
-    auto-detection against VMEM_RESIDENT_BYTES.  Ring-row WRITES still
-    stream.
+    hist_resident: count history READS as free (a ring held in a cache
+    across the while_loop); default False — every history pass streams.
+    Ring-row WRITES always stream.
 
-    batch: vmapped instance count — residency keys on the TOTAL footprint
-    and the returned model's bytes/iter scale by it (TrafficModel.batch).
+    batch: vmapped instance count — the returned model's bytes/iter scale
+    by it (TrafficModel.batch).
 
-    History passes assume the lane-tiled (m, R, 128) storage (zero tiling
-    waste — types.hist_block); a bfloat16 history pass costs 0.5
-    f32-equivalents.
+    History passes assume the (m, R, 128) storage (types.hist_block); a
+    bfloat16 history pass costs 0.5 f32-equivalents.
     """
     m = cfg.m
     if fused_tail is None:
         fused_tail = cfg.use_pallas
     hw = 1.0
-    hd = cfg.history_dtype
-    if hd == "auto":
-        # Same rule resolve_history_dtype applies: f32 while resident, bf16
-        # streaming AND cleanly (16, 128)-tileable — but ONLY for f32
-        # inputs; f64 always keeps full precision (parity paths), so its
-        # history weight stays 1.0.
-        from ..types import hist_block
+    from ..core.solver import resolve_history_dtype
 
-        streams = history_streams(m, d, dtype_bytes, batch=batch)
-        hd = "bfloat16" if (streams and dtype_bytes == 4
-                            and hist_block(d)[0] % 16 == 0) else None
+    hd = resolve_history_dtype(cfg.history_dtype, m, d,
+                               "float32" if dtype_bytes == 4 else "float64",
+                               batch=batch)
     if hd is not None:
         import jax.numpy as jnp
         hw = jnp.dtype(hd).itemsize / dtype_bytes
-    if hist_resident is None:
-        hist_resident = not history_streams(m, d, dtype_bytes * hw,
-                                            batch=batch)
     hw_write = hw     # ring-row writes stream regardless of residency
     if hist_resident:
         hw = 0.0      # resident history: READS are free
